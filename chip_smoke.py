@@ -3,11 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ and holds each one against its
-plain PyTorch twin on the card at the shapes of the TS-VAD main path, drives
-the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
-random weights) and checks that it went through the kernels, then runs the
-`infer --family tsvad` CLI and `score` on a generated corpus. Each phase
+Builds the port's CUDA kernels from csrc/ and holds each one (K1 fbank, K2
+CAM++ dense block, K3a/K3b/K3c selective scan) against its plain PyTorch
+twin on the card at the shapes of the main paths. Then drives, each with the
+launch counts set to 0 just before and read just after:
+- the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
+  random weights): fbank 1, cam_block 3;
+- the same with BiMamba backends (d_state 64): fbank 1, cam_block 3,
+  selective_scan_fwd 8;
+- a Mamba TS-VAD train step at the hermetic recipe's settings: fbank 1,
+  selective_scan_fwd_states 8, selective_scan_bwd 8; five steps on one
+  fixed batch must lower the loss;
+then the CLI: `infer --family tsvad` + `score` from flax-layout weights, and
+`train --family tsvad` (Mamba, batch 64 × 4 s, bf16, with validation and
+checkpoints) followed by `infer --exp-dir` on generated corpora. Each phase
 prints one line and raises on failure. The last lines are the kernels' JSON
 record, the card's name and power limit, and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
@@ -26,6 +35,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # CUDA cores, no tensor cores
 H100_BF16_FLOPS = 989e12  # dense tensor cores
+# exponentials on the special-function units: 16 per SM per clock (sm_90),
+# 132 SMs at the 1.98 GHz boost clock of the H100 SXM
+H100_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def phase(name, msg):
@@ -48,8 +60,11 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def bound(work, flops_per_s):
-    """(least ms the card could take, what bounds it) for `work` = {bytes, flops}."""
-    t_bytes, t_ops = work["bytes"] / H100_BYTES_PER_S, work["flops"] / flops_per_s
+    """(least ms the card could take, what bounds it) for `work` = {bytes,
+    flops[, exps]}: the larger of the bytes over the memory rate and the
+    operations over their peak, exponentials counted at the SFU rate."""
+    t_bytes = work["bytes"] / H100_BYTES_PER_S
+    t_ops = max(work["flops"] / flops_per_s, work.get("exps", 0.0) / H100_EXP_PER_S)
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -195,33 +210,132 @@ def main() -> int:
     k2["bound_by"] = bound(k2, H100_BF16_FLOPS)[1]
     records["cam_block"] = k2
 
+    # ---- K3a/K3b/K3c: the selective-scan kernels vs their plain twins (fp32)
+    # at the Mamba main path's two shapes, T = 100, d_inner 768, d_state 64:
+    # the single backend's B·S = 256 rows and the multi backend's 64. Each
+    # forward or train step launches each kernel 4 times at each shape, so
+    # the records are per forward (K3a) or per train step (K3b, K3c).
+    # Bars: y and h0 within 1e-4 · max(1, max|twin|) (a few ulp of exp per
+    # step over 100 steps); each gradient within 1e-3 · max|twin gradient|
+    # (dA and dD sum 25,600 rows in another order).
+    from speaker_diarization_tpu_torch.kernels import selective_scan as K3
+    from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_sequential
+
+    k3 = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0, exps=0.0)
+          for k in ("selective_scan_fwd", "selective_scan_fwd_states", "selective_scan_bwd")}
+    T3, D3, N3 = 100, 768, 64
+    for Bs in (256, 64):
+        x = torch.randn((Bs, T3, D3), generator=gen).to(dev)
+        dt = torch.nn.functional.softplus(torch.randn((Bs, T3, D3), generator=gen) - 2.0).to(dev)
+        A = -torch.arange(1, N3 + 1, dtype=torch.float32).repeat(D3, 1).to(dev)
+        Bm = torch.randn((Bs, T3, N3), generator=gen).to(dev)
+        C = torch.randn((Bs, T3, N3), generator=gen).to(dev)
+        Dp = (1.0 + 0.1 * torch.randn(D3, generator=gen)).to(dev)
+        gy = torch.randn((Bs, T3, D3), generator=gen).to(dev)
+        a3 = (x, dt, A, Bm, C, Dp)
+        y = K3.selective_scan_fwd(*a3)
+        y2, h0 = K3.selective_scan_fwd_states(*a3)
+        yr, h0r = K3.selective_scan_states_ref(*a3)
+        grads = K3.selective_scan_bwd(*a3, h0, gy)
+        grads_r = K3.selective_scan_bwd_ref(*a3, h0r, gy)
+        torch.cuda.synchronize()
+        y_bar, h_bar = 1e-4 * max(1.0, yr.abs().max().item()), 1e-4 * max(1.0, h0r.abs().max().item())
+        e_fwd = (y - yr).abs().max().item()
+        e_y2, e_h0 = (y2 - yr).abs().max().item(), (h0 - h0r).abs().max().item()
+        g_errs = {n: ((p - q).abs().max().item(), 1e-3 * q.abs().max().item())
+                  for n, p, q in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, grads_r)}
+        phase("K3", f"({Bs}, {T3}, {D3}, {N3}) fwd max-abs {e_fwd:.3e} (bar {y_bar:.3e}); fwd_states y {e_y2:.3e}, "
+              f"h0 {e_h0:.3e} (bar {h_bar:.3e}); bwd " + ", ".join(f"{n} {e:.3e} (bar {b:.3e})" for n, (e, b) in g_errs.items()))
+        if not (e_fwd <= y_bar and e_y2 <= y_bar and e_h0 <= h_bar and all(e <= b for e, b in g_errs.values())
+                and all(torch.isfinite(t).all() for t in (y, y2, h0, *grads))):
+            raise AssertionError(f"K3 disagrees with its twins at B={Bs}")
+        times = {
+            "selective_scan_fwd": (cuda_ms(lambda: K3.selective_scan_fwd(*a3)),
+                                   cuda_ms(lambda: selective_scan_sequential(*a3), iters=3, warmup=1), "fwd", e_fwd),
+            "selective_scan_fwd_states": (cuda_ms(lambda: K3.selective_scan_fwd_states(*a3)),
+                                          cuda_ms(lambda: K3.selective_scan_states_ref(*a3), iters=3, warmup=1),
+                                          "states", max(e_y2, e_h0)),
+            "selective_scan_bwd": (cuda_ms(lambda: K3.selective_scan_bwd(*a3, h0, gy), iters=5),
+                                   cuda_ms(lambda: K3.selective_scan_bwd_ref(*a3, h0r, gy), iters=2, warmup=1),
+                                   "bwd", max(e for e, _ in g_errs.values())),
+        }
+        for key, (ms, plain, kind, err) in times.items():
+            work = K3.scan_work(kind, Bs, T3, D3, N3)
+            bms, by = bound(work, H100_FP32_FLOPS)
+            phase("K3", f"{key} ({Bs}, {T3}, {D3}, {N3}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}) per launch")
+            r = k3[key]
+            r["ms"] += 4 * ms
+            r["plain_ms"] += 4 * plain
+            r["bound_ms"] += 4 * bms
+            r["err"] = max(r["err"], err)
+            for q in ("bytes", "flops", "exps"):
+                r[q] += 4 * work[q]
+    # ragged shapes: T not a multiple of the chunk or the time tile, d_inner
+    # not a multiple of the block, every built d_state
+    for Bs, Tx, Dx, Nx in ((3, 37, 100, 8), (2, 50, 200, 16), (4, 33, 130, 32)):
+        x = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
+        dt = (0.01 + 0.1 * torch.rand((Bs, Tx, Dx), generator=gen)).to(dev)
+        A = -torch.exp(torch.randn((Dx, Nx), generator=gen)).to(dev)
+        a3 = (x, dt, A, torch.randn((Bs, Tx, Nx), generator=gen).to(dev),
+              torch.randn((Bs, Tx, Nx), generator=gen).to(dev), torch.randn(Dx, generator=gen).to(dev))
+        gy = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
+        yr, h0r = K3.selective_scan_states_ref(*a3)
+        y2, h0 = K3.selective_scan_fwd_states(*a3)
+        e = max((K3.selective_scan_fwd(*a3) - yr).abs().max().item(), (y2 - yr).abs().max().item())
+        ge = max(((p - q).abs().max() / q.abs().max()).item()
+                 for p, q in zip(K3.selective_scan_bwd(*a3, h0, gy), K3.selective_scan_bwd_ref(*a3, h0r, gy)))
+        phase("K3", f"({Bs}, {Tx}, {Dx}, {Nx}): y max-abs {e:.3e} (bar {1e-4 * max(1.0, yr.abs().max().item()):.3e}), "
+              f"gradients max-abs / max|twin| {ge:.3e} (bar 1e-3)")
+        if not (e <= 1e-4 * max(1.0, yr.abs().max().item()) and ge <= 1e-3):
+            raise AssertionError(f"K3 disagrees with its twins at ({Bs}, {Tx}, {Dx}, {Nx})")
+    for r in k3.values():
+        r["bound_by"] = bound(r, H100_FP32_FLOPS)[1]
+    records.update(k3)
+
     # ---- the main path: full-width TS-VAD forward through the kernels
+    from speaker_diarization_tpu_torch.models import mamba as MB
+
+    wrappers = {"fbank": K1.fbank_cuda, "cam_block": K2.cam_dense_block_cuda,
+                "selective_scan_fwd": K3.selective_scan_fwd, "selective_scan_fwd_states": K3.selective_scan_fwd_states,
+                "selective_scan_bwd": K3.selective_scan_bwd}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def want(**nonzero):
+        return {k: nonzero.get(k, 0) for k in wrappers}
+
     audios, embss = make_inputs(cfg, 64, 4.0, 8, seed=0, device=dev)
     n_label = int(4.0 * cfg.label_rate)
     with torch.no_grad():
         model(audios[0], embss[0], n_label)  # warm-up
         torch.cuda.synchronize()
-        K1.fbank_cuda.launches = 0
-        K2.cam_dense_block_cuda.launches = 0
+        reset_counts()
         logits = model(audios[1], embss[1], n_label)
         torch.cuda.synchronize()
-        launches = {"fbank": K1.fbank_cuda.launches, "cam_block": K2.cam_dense_block_cuda.launches}
+        launches = read_counts()
         phase("forward", f"TS-VAD bf16 (64, 64000) -> {tuple(logits.shape)}; launches {launches}")
-        if launches != {"fbank": 1, "cam_block": 3}:
+        if launches != want(fbank=1, cam_block=3):
             raise AssertionError(f"main path launches {launches}, want fbank 1 and cam_block 3")
         if tuple(logits.shape) != (64, 100, 4) or not torch.isfinite(logits).all():
             raise AssertionError("bad logits from the main path")
 
         def plain_forward(m, a, e, n_label=n_label):
-            """The same model with both kernels replaced by their plain twins."""
-            saved = (FE.kaldi_fbank_auto, CF._dense_block_auto)
+            """The same model with every kernel replaced by its plain twin."""
+            saved = (FE.kaldi_fbank_auto, CF._dense_block_auto, MB.selective_scan_auto)
             FE.kaldi_fbank_auto = lambda w, sample_rate, num_mel_bins, mean_norm: FE.kaldi_fbank_torch(
                 w, sample_rate=sample_rate, num_mel_bins=num_mel_bins, mean_norm=mean_norm)
             CF._dense_block_auto = lambda h, bp, dil, dtype: K2.cam_dense_block_infer(h, bp, dil, dtype=dtype)
+            MB.selective_scan_auto = selective_scan_sequential
             try:
                 return m(a, e, n_label)
             finally:
-                FE.kaldi_fbank_auto, CF._dense_block_auto = saved
+                FE.kaldi_fbank_auto, CF._dense_block_auto, MB.selective_scan_auto = saved
 
         ref = plain_forward(model, audios[1], embss[1])
         mean_err = (logits - ref).abs().mean().item()
@@ -250,6 +364,68 @@ def main() -> int:
     tp = throughput(model, audios, embss, n_label, iters=20, reps=3)
     phase("throughput", f"TS-VAD bf16 batch 64 x 4 s: {tp['ms_per_forward']:.3f} ms/forward, "
           f"{tp['audio_s_per_s']:.1f} audio-s/s (checksum {tp['witness']:.6e}, reps {[round(r, 4) for r in tp['reps_s']]})")
+
+    # ---- the Mamba main path: the same forward with BiMamba backends (K3a)
+    mcfg = TSVADConfig(single_backend_type="mamba", multi_backend_type="mamba")
+    mmodel = TSVADModel(mcfg, dtype="bf16", device=dev, seed=0)
+    with torch.no_grad():
+        mmodel(audios[0], embss[0], n_label)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        mlogits = mmodel(audios[1], embss[1], n_label)
+        torch.cuda.synchronize()
+        mlaunches = read_counts()
+        phase("mamba", f"TS-VAD-Mamba bf16 (64, 64000) -> {tuple(mlogits.shape)}; launches {mlaunches}")
+        if mlaunches != want(fbank=1, cam_block=3, selective_scan_fwd=8):
+            raise AssertionError(f"Mamba path launches {mlaunches}, want fbank 1, cam_block 3, selective_scan_fwd 8")
+        if tuple(mlogits.shape) != (64, 100, 4) or not torch.isfinite(mlogits).all():
+            raise AssertionError("bad logits from the Mamba path")
+        ref = plain_forward(mmodel, audios[1], embss[1])
+        mean_err, scale = (mlogits - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
+        phase("mamba", f"bf16 logits vs plain twins: mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f}), "
+              f"max-abs {(mlogits - ref).abs().max().item():.3e}")
+        if not mean_err <= 5e-2 * scale:
+            raise AssertionError(f"bf16 Mamba path disagrees with the plain twins: mean-abs {mean_err}")
+        m32 = TSVADModel(mcfg, dtype="fp32", device=dev, seed=0)
+        got32, ref32 = m32(audios[2][:8], embss[2][:8], n_label), plain_forward(m32, audios[2][:8], embss[2][:8])
+        err32, scale32 = (got32 - ref32).abs().max().item(), max(1.0, ref32.abs().max().item())
+        phase("mamba", f"fp32 logits (B=8) vs plain twins: max-abs {err32:.3e} (bar 1e-3 x {scale32:.3f})")
+        if not err32 <= 1e-3 * scale32:
+            raise AssertionError(f"fp32 Mamba forward disagrees with the plain twins: max-abs {err32}")
+        del m32
+    tpm = throughput(mmodel, audios, embss, n_label, iters=20, reps=3)
+    phase("throughput", f"TS-VAD-Mamba bf16 batch 64 x 4 s: {tpm['ms_per_forward']:.3f} ms/forward, "
+          f"{tpm['audio_s_per_s']:.1f} audio-s/s (checksum {tpm['witness']:.6e}, reps {[round(r, 4) for r in tpm['reps_s']]})")
+    del mmodel
+
+    # ---- the training path: Mamba TS-VAD train steps (K1, K3b, K3c)
+    from speaker_diarization_tpu_torch.bench import make_train_batches, recipe_trainer, train_throughput
+    from speaker_diarization_tpu_torch.train.tasks import make_tsvad_loss
+    from speaker_diarization_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    tmodel = TSVADModel(mcfg, dtype="bf16", device=dev, seed=1)
+    batches = make_train_batches(mcfg, 64, 4.0, 4, seed=2, device=dev)
+    # five adam steps at a constant 1e-3 on one fixed batch: the loss must fall
+    fixed = Trainer(tmodel, make_tsvad_loss(n_label), TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-3))
+    losses = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        reset_counts()
+        aux = fixed.train_step(batches[0])
+        torch.cuda.synchronize()
+        tlaunches = read_counts()
+        losses.append(aux["loss"].item())
+        if tlaunches != want(fbank=1, selective_scan_fwd_states=8, selective_scan_bwd=8):
+            raise AssertionError(f"train step {i} launches {tlaunches}, want fbank 1, "
+                                 "selective_scan_fwd_states 8, selective_scan_bwd 8")
+    phase("train", f"5 steps on one batch (bf16, 64 x 4 s): losses {[round(v, 5) for v in losses]}; "
+          f"launches per step {tlaunches}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+    tt = train_throughput(recipe_trainer(tmodel, n_label), batches, iters=5, reps=3)
+    phase("throughput", f"TS-VAD-Mamba train step (recipe: adam, poly, bf16, batch 64 x 4 s): "
+          f"{tt['ms_per_step']:.3f} ms/step (loss checksum {tt['witness']:.6e}, reps {[round(r, 4) for r in tt['reps_s']]})")
+    del tmodel, fixed, batches
 
     # ---- the entry point answers requests: CLI infer + score on a generated corpus
     from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
@@ -289,15 +465,70 @@ def main() -> int:
             raise RuntimeError(f"CLI score failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
         phase("cli", f"score: DER/MS/FA/SC {line}")
 
+    # ---- the training entry point: cli train (Mamba, recipe settings) then infer --exp-dir
+    from speaker_diarization_tpu_torch.data.kaldi_io import save_data_dir
+    from speaker_diarization_tpu_torch.data.wav import write_wav
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tr = write_synthetic_corpus(os.path.join(tmp, "train"), n_recs=3, seconds=90.0, rate=16000, n_speakers=3,
+                                    emb_dim=mcfg.speaker_embed_dim, seed=10, prefix="tr")
+        va = write_synthetic_corpus(os.path.join(tmp, "valid"), n_recs=2, seconds=140.0, rate=16000, n_speakers=3,
+                                    emb_dim=mcfg.speaker_embed_dim, seed=11, prefix="va")
+        noise_wav = os.path.join(tmp, "noise", "n0.wav")
+        os.makedirs(os.path.dirname(noise_wav))
+        write_wav(noise_wav, (0.1 * torch.randn(160000, generator=gen)).numpy(), 16000)
+        save_data_dir(os.path.dirname(noise_wav), {"n0": noise_wav})
+        exp = os.path.join(tmp, "exp")
+        sets = ["sample_rate=16000", "n_mels=80", "encoder_blocks=12,24,16", "rs_len=4.0", "segment_shift=2.0",
+                "batch_size=64", "num_steps=4", "optimizer=adam", "schedule=poly", "learning_rate=2e-4",
+                "warmup_steps=400", "bf16=true", "log_every=2", "valid_every=2", "n_layers=2",
+                "single_backend_type=mamba", "multi_backend_type=mamba"]
+        cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "train", "--family", "tsvad",
+               "--train-dir", tr["data_dir"], "--valid-dir", va["data_dir"], "--exp-dir", exp,
+               "--emb-store", f"{tr['emb_store']},{va['emb_store']}", "--noise-dir", os.path.dirname(noise_wav)]
+        cmd += [a for kv in sets for a in ("--set", kv)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"CLI train failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        trains = [r for r in recs if r["kind"] == "train"]
+        valids = [r for r in recs if r["kind"] == "valid"]
+        ckpts = sorted(fn for fn in os.listdir(exp) if fn.startswith("step_"))
+        phase("cli", f"train --family tsvad (Mamba, bf16, batch 64 x 4 s, 4 steps): {time.perf_counter() - t0:.1f} s; "
+              f"last log {trains[-1] if trains else None}; valid losses {[round(r['loss'], 5) for r in valids]}; "
+              f"checkpoints {ckpts}")
+        if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in recs) or not ckpts:
+            raise AssertionError(f"CLI train did not log, validate and checkpoint as asked: {recs}, {ckpts}")
+        out = os.path.join(tmp, "hyp")
+        cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "infer", "--family", "tsvad",
+               "--data-dir", va["data_dir"], "--emb-store", va["emb_store"], "--exp-dir", exp,
+               "--out", out, "--threshold-sweep", "--ref", va["rttm"]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"CLI infer --exp-dir failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
+        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", res.stdout)
+        n_rttm = sum(fn.startswith("hyp_") for fn in os.listdir(tmp))
+        phase("cli", f"infer --exp-dir: {n_rttm} RTTMs, best threshold {best.group(1) if best else None} "
+              f"DER {best.group(2) if best else None}% (4 steps of training), {time.perf_counter() - t0:.1f} s")
+        if not best or n_rttm != 18:
+            raise AssertionError(f"CLI infer --exp-dir wrote {n_rttm} RTTMs:\n{res.stdout}")
+
     kernels = []
-    for key, src, replaces in (
-        ("fbank", "speaker_diarization_tpu_torch/csrc/fbank.cu", "speaker_diarization_tpu/kernels/fbank_pallas.py:43"),
-        ("cam_block", "speaker_diarization_tpu_torch/csrc/cam_block.cu", "speaker_diarization_tpu/kernels/cam_block_pallas.py:43"),
+    scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
+    for key, src, replaces, path_launches in (
+        ("fbank", "speaker_diarization_tpu_torch/csrc/fbank.cu", "speaker_diarization_tpu/kernels/fbank_pallas.py:43", mlaunches),
+        ("cam_block", "speaker_diarization_tpu_torch/csrc/cam_block.cu", "speaker_diarization_tpu/kernels/cam_block_pallas.py:43", mlaunches),
+        ("selective_scan_fwd", scan_src, f"{scan_tpu}:50", mlaunches),
+        ("selective_scan_fwd_states", scan_src, f"{scan_tpu}:148", tlaunches),
+        ("selective_scan_bwd", scan_src, f"{scan_tpu}:190", tlaunches),
     ):
         r = records[key]
-        # no single PyTorch call computes either function, so library_ms is null
+        # no single PyTorch call computes any of these functions, so library_ms is null
         kernels.append(dict(
-            name=key, route="cuda", source=src, replaces=replaces, launches=launches[key], max_abs_err=r["err"],
+            name=key, route="cuda", source=src, replaces=replaces, launches=path_launches[key], max_abs_err=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         ))
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -38,15 +38,17 @@ def write_synthetic_corpus(
     n_speakers: int = 3,
     emb_dim: int = 192,
     seed: int = 0,
+    prefix: str = "rec",
 ) -> Dict[str, str]:
-    """Write the corpus; returns paths {data_dir, rttm, emb_store}."""
+    """Write the corpus; returns paths {data_dir, rttm, emb_store}.
+    Recordings are named <prefix>00, <prefix>01, ..."""
     rng = np.random.default_rng(seed)
     wav_dir = os.path.join(out_dir, "wav")
     os.makedirs(wav_dir, exist_ok=True)
     wavs, durs, all_turns, embs = {}, {}, [], {}
     t = np.arange(int(seconds * rate)) / rate
     for r in range(n_recs):
-        rec = f"rec{r:02d}"
+        rec = f"{prefix}{r:02d}"
         spks = [f"{rec}_spk{i}" for i in range(n_speakers)]
         turns = _turns(rng, rec, spks, seconds)
         audio = 0.01 * rng.standard_normal(len(t))

@@ -8,6 +8,8 @@ fp32 and casts back, as flax's BatchNorm does for a bf16 input.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
@@ -33,18 +35,47 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
-    """BatchNorm over dim 1 of (N, C, ...) inputs, normalised in fp32."""
+    """BatchNorm over dim 1 of (N, C, ...) inputs, normalised in fp32.
+
+    Train mode follows flax's BatchNorm, not PyTorch's: the batch variance is
+    the biased E[x²] − E[x]² (clipped at 0), and the running statistics move
+    by `momentum` = 0.1 towards the batch mean and that same biased variance
+    (flax momentum 0.9).
+    """
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
             raise ValueError(f"BatchNorm wants (N, C, ...), got {tuple(x.shape)}")
 
     def forward(self, x):
-        y = Fn.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-            self.training, self.momentum, self.eps,
-        )
+        xf = x.float()
+        if not self.training:
+            y = Fn.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.weight is not None:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from `generator` (on x's device).
+
+    The JAX package draws from jax.random keys; the two frameworks' bits
+    differ, so parity tests run with p = 0.
+    """
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - p, generator=generator)
+    return x * (keep / (1.0 - p)).to(x.dtype)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
@@ -53,7 +84,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     Matrices and kernels are N(0, 1/fan_in); biases N(0, 0.01); BatchNorm
     scale 1 + N(0, 0.01), shift N(0, 0.01), running mean N(0, 0.01) and
     running variance 1 + U(0, 0.2), so folded statistics are not trivial.
-    Draws on the CPU from `generator`, in state-dict order, then copies.
+    Mamba's A_log and D take Mamba's own init (log 1..N per channel, ones),
+    as in the JAX package. Draws on the CPU from `generator`, in state-dict
+    order, then copies.
     """
     with torch.no_grad():
         for name, t in module.state_dict(keep_vars=True).items():
@@ -62,7 +95,11 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 t.zero_()
                 continue
             shape = tuple(t.shape)
-            if leaf == "running_var":
+            if leaf == "A_log":
+                v = torch.log(torch.arange(1, shape[1] + 1, dtype=torch.float32)).repeat(shape[0], 1)
+            elif leaf == "D":
+                v = torch.ones(shape)
+            elif leaf == "running_var":
                 v = 1.0 + 0.2 * torch.rand(shape, generator=generator)
             elif leaf == "running_mean" or leaf == "bias":
                 v = 0.1 * torch.randn(shape, generator=generator)

@@ -10,7 +10,9 @@ with the flax layer's numerics:
   which utils/convert.py flattens into these (D, D) Linear weights;
 - LayerNorm uses eps = 1e-6 (flax's default, not torch's 1e-5), normalised
   in fp32 and cast back to the compute dtype;
-- dropout is not applied: this port is inference-only so far.
+- in train mode dropout (rate `dropout`) sits where flax puts it: on the
+  attention weights, after the FFN activation, and on both residual
+  branches; its masks come from an explicit torch.Generator.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
 
-from .layers import Linear
+from .layers import Linear, dropout as drop
 
 LN_EPS = 1e-6
 
@@ -46,15 +48,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout = dropout
         self.query = Linear(d_model, d_model)
         self.key = Linear(d_model, d_model)
         self.value = Linear(d_model, d_model)
         self.out = Linear(d_model, d_model)
 
-    def forward(self, x):  # (B, T, D) self-attention, no mask
+    def forward(self, x, generator=None):  # (B, T, D) self-attention, no mask
         B, T, D = x.shape
         H = self.n_heads
         q = self.query(x).view(B, T, H, D // H).transpose(1, 2)
@@ -62,30 +65,34 @@ class MultiHeadAttention(nn.Module):
         v = self.value(x).view(B, T, H, D // H).transpose(1, 2)
         q = q / torch.tensor(math.sqrt(D // H), dtype=x.dtype)
         w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)  # (B, H, T, T)
+        w = drop(w, self.dropout, self.training, generator)
         o = torch.matmul(w, v).transpose(1, 2).reshape(B, T, D)
         return self.out(o)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.dense0 = Linear(d_model, d_ff)
         self.dense1 = Linear(d_ff, d_model)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.dense1(torch.relu(self.dense0(x)))
+    def forward(self, x, generator=None):
+        return self.dense1(drop(torch.relu(self.dense0(x)), self.dropout, self.training, generator))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer (torch nn.TransformerEncoderLayer semantics)."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ff: int):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(d_model, n_heads)
+        self.attn = MultiHeadAttention(d_model, n_heads, dropout)
         self.ln1 = LayerNorm(d_model)
-        self.ff = FeedForward(d_model, d_ff)
+        self.ff = FeedForward(d_model, d_ff, dropout)
         self.ln2 = LayerNorm(d_model)
+        self.dropout = dropout
 
-    def forward(self, x):
-        x = self.ln1(x + self.attn(x))
-        return self.ln2(x + self.ff(x))
+    def forward(self, x, generator=None):
+        p, on = self.dropout, self.training
+        x = self.ln1(x + drop(self.attn(x, generator), p, on, generator))
+        return self.ln2(x + drop(self.ff(x, generator), p, on, generator))

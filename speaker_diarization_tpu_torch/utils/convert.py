@@ -14,10 +14,16 @@ utils/torch_convert.py):
   flax MHA out (H, Dh, D)                → Linear weight (D, H·Dh)
   BatchNorm scale/bias + mean/var        → weight/bias + running_mean/running_var
   LayerNorm scale/bias                   → weight/bias
+  Mamba conv_kernel (d_conv, 1, d_inner) → conv.weight (d_inner, 1, d_conv)
+  Mamba conv_bias, A_log, D              → conv.bias, A_log, D
+
+`load_encoder_npz` reads the JAX `export-encoder` npz (models/spk_embed.py
+`save_encoder`: "/"-joined variable paths and a JSON `__cfg__`).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Dict, Iterator, Tuple
@@ -135,6 +141,56 @@ def _backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
     return {k: _t(v) for k, v in sd.items()}
 
 
+def _mamba_backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax BiMambaBlock params → this package's BiMambaBlock state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, sub in params.items():
+        base = f"{prefix}.{name}"
+        if name.startswith("norm_"):
+            sd[f"{base}.weight"], sd[f"{base}.bias"] = sub["scale"], sub["bias"]
+        elif name.startswith("merge_"):
+            sd[f"{base}.weight"] = sub["kernel"].T
+        else:  # fwd_i / bwd_i: one MambaLayer
+            for lin in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+                sd[f"{base}.{lin}.weight"] = sub[lin]["kernel"].T
+            sd[f"{base}.dt_proj.bias"] = sub["dt_proj"]["bias"]
+            sd[f"{base}.conv.weight"] = sub["conv_kernel"].transpose(2, 1, 0)
+            sd[f"{base}.conv.bias"] = sub["conv_bias"]
+            sd[f"{base}.A_log"], sd[f"{base}.D"] = sub["A_log"], sub["D"]
+    return {k: _t(v) for k, v in sd.items()}
+
+
+def _mamba_to_flax(parts: list, w: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """Inverse of `_mamba_backend_from_flax` for one tensor: parts are the
+    state-dict name below the backend ([module, ..., leaf])."""
+    mod, leaf = parts[0], parts[-1]
+    if mod.startswith("norm_"):
+        return (mod, "scale" if leaf == "weight" else "bias"), w
+    if mod.startswith("merge_"):
+        return (mod, "kernel"), w.T
+    if parts[1] == "conv":
+        return ((mod, "conv_kernel"), w.transpose(2, 1, 0)) if leaf == "weight" else ((mod, "conv_bias"), w)
+    if len(parts) == 2:  # A_log, D
+        return (mod, leaf), w
+    return (mod, parts[1], "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w
+
+
+def load_encoder_npz(path: str) -> Tuple[dict, dict]:
+    """JAX export-encoder npz → (its config dict, {'params', 'batch_stats'})."""
+    out: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["__cfg__"]))
+        for key in z.files:
+            if key == "__cfg__":
+                continue
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return meta, {"params": out.get("params", {}), "batch_stats": out.get("batch_stats", {})}
+
+
 def _conv_bn_from_flax(params: dict, stats: dict, prefix: str) -> Dict[str, torch.Tensor]:
     sd = {
         f"{prefix}.conv.weight": _kernel(params["conv"]["kernel"]),
@@ -151,7 +207,8 @@ def _conv_bn_from_flax(params: dict, stats: dict, prefix: str) -> Dict[str, torc
 
 def tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX TSVADModel variables ({'params', 'batch_stats'}, arrays) →
-    this package's TSVADModel state_dict (CAM++ encoder, transformer backends)."""
+    this package's TSVADModel state_dict (CAM++ encoder, transformer or
+    BiMamba backends)."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     enc = campplus_from_flax(p["speech_encoder"], s["speech_encoder"])
@@ -161,8 +218,9 @@ def tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     if "proj_layer" in p:
         sd["proj_layer.weight"] = _t(p["proj_layer"]["kernel"].T)
         sd["proj_layer.bias"] = _t(p["proj_layer"]["bias"])
-    sd.update(_backend_from_flax(p["single_backend"], "single_backend"))
-    sd.update(_backend_from_flax(p["multi_backend"], "multi_backend"))
+    for name in ("single_backend", "multi_backend"):
+        backend = _mamba_backend_from_flax if "norm_out" in p[name] else _backend_from_flax
+        sd.update(backend(p[name], name))
     sd["fc.weight"] = _t(p["fc"]["kernel"].T)
     sd["fc.bias"] = _t(p["fc"]["bias"])
     return sd
@@ -234,6 +292,9 @@ def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
                 _put(out[coll], (top, "bn", n), w)
         elif top in ("fc", "proj_layer"):
             _put(out["params"], (top, "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w)
+        elif not parts[1].startswith("layer_"):  # a BiMamba backend
+            path, w = _mamba_to_flax(parts[1:], w)
+            _put(out["params"], (top, *path), w)
         elif parts[2] == "attn":  # {single,multi}_backend.layer_i.attn.<n>.<leaf>
             att, n = (top, parts[1], "MultiHeadDotProductAttention_0", parts[3]), parts[3]
             if leaf == "bias":

@@ -102,8 +102,8 @@ def test_dataset_eval_items_match(corpus):
                 np.testing.assert_array_equal(x[k], y[k], err_msg=k)
             else:
                 assert x[k] == y[k], k
-    with pytest.raises(NotImplementedError):
-        TSVADChunkDataset(corpus["data_dir"], EmbeddingStore.load(corpus["emb_store"]), is_train=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        TSVADChunkDataset(corpus["data_dir"], EmbeddingStore.load(corpus["emb_store"]), is_train=True, enhancer="dsp")
 
 
 def _jax_probs(jmodel, v, corpus):

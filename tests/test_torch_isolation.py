@@ -97,13 +97,14 @@ def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     code = (
         "import speaker_diarization_tpu_torch.kernels.fbank, speaker_diarization_tpu_torch.kernels.cam_block, "
-        "speaker_diarization_tpu_torch.kernels.cam_block_fused, speaker_diarization_tpu_torch.kernels._build; print('ok')"
+        "speaker_diarization_tpu_torch.kernels.cam_block_fused, speaker_diarization_tpu_torch.kernels.selective_scan, "
+        "speaker_diarization_tpu_torch.kernels._build; print('ok')"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
-    assert set(_build.sources()) == {"fbank", "cam_block"}
+    assert set(_build.sources()) == {"fbank", "cam_block", "selective_scan"}
 
 
 def test_wrappers_run_their_twins_for_cpu_tensors():
