@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ and holds each one (K1 fbank, K2
-CAM++ dense block, K3a/K3b/K3c selective scan) against its plain PyTorch
-twin on the card at the shapes of the main paths. Then drives, each with the
-launch counts set to 0 just before and read just after:
+Builds the port's CUDA kernels from csrc/ and holds each one (K1 fbank, K1′
+EEND log-mel, K2 CAM++ dense block, K3a/K3b/K3c selective scan) against its
+plain PyTorch twin on the card at the shapes of the main paths. Then drives,
+each with the launch counts set to 0 just before and read just after:
 - the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
   random weights): fbank 1, cam_block 3;
 - the same with BiMamba backends (d_state 64): fbank 1, cam_block 3,
@@ -14,11 +14,17 @@ launch counts set to 0 just before and read just after:
 - a Mamba TS-VAD train step at the hermetic recipe's settings: fbank 1,
   selective_scan_fwd_states 8, selective_scan_bwd 8; five steps on one
   fixed batch must lower the loss;
-then the CLI: `infer --family tsvad` + `score` from flax-layout weights, and
+- the full-width bf16 EEND forward and `EendEdaModel.infer` (TrainCliConfig
+  widths, 8 kHz, batch 32 × one 500-frame chunk): logmel 1 each;
+- EEND and EDA train steps: logmel 1 per step; five steps on one fixed
+  batch must lower the loss;
+then the CLI: `infer --family tsvad` + `score` from flax-layout weights,
 `train --family tsvad` (Mamba, batch 64 × 4 s, bf16, with validation and
-checkpoints) followed by `infer --exp-dir` on generated corpora. Each phase
-prints one line and raises on failure. The last lines are the kernels' JSON
-record, the card's name and power limit, and {"ok": true, "device": ...}.
+checkpoints) followed by `infer --exp-dir`, and `train --family eend` /
+`eend_eda` followed by `infer --exp-dir --threshold-sweep` + `score`, on
+generated corpora. Each phase prints one line and raises on failure. The
+last lines are the kernels' JSON record, the card's name and power limit,
+and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
 """
 
@@ -126,6 +132,32 @@ def main() -> int:
             raise AssertionError(f"K1 disagrees with its twin at {sr} Hz: max-abs {err}")
         if sr == 16000:
             records["fbank"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, err=err)
+
+    # ---- K1′: the EEND log-mel entry vs its plain twin (fp32, log10 units;
+    # bar 2e-3 = K1's 5e-3 natural-log bar / ln 10). The main shape is the
+    # EEND bench's: batch 32 × one 50 s chunk at 8 kHz; then 16 kHz and
+    # ragged lengths (not a multiple of the shift; shorter than n_fft)
+    k1p = dict(err=0.0)
+    for sr, fs, sh, shape in ((8000, 200, 80, (32, 400000)), (16000, 400, 160, (8, 160000)),
+                              (8000, 200, 80, (3, 8123)), (8000, 200, 80, (2, 100)), (16000, 400, 160, (2, 16010))):
+        x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
+        T = FE.count_frames(shape[1], sh)
+        got = K1.logmel_cuda(x, T, fs, sh, sr, 23)
+        ref = FE.logmel_frames_torch(x, T, fs, sh, sr, 23, mean_norm=False)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        k1p["err"] = max(k1p["err"], err)
+        line = f"logmel {sr} Hz/{fs}/{sh}/23 {tuple(shape)} -> {tuple(got.shape)}: max-abs {err:.3e} (bar 2e-3)"
+        if shape == (32, 400000):
+            ms = cuda_ms(lambda: K1.logmel_cuda(x, T, fs, sh, sr, 23))
+            plain = cuda_ms(lambda: FE.logmel_frames_torch(x, T, fs, sh, sr, 23, mean_norm=False), iters=5)
+            bms, by = bound(K1.logmel_work(*shape, fs, sh, sr, 23), H100_FP32_FLOPS)
+            k1p.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+            line += f", kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})"
+        phase("K1′", line)
+        if not (got.shape == (shape[0], T, 23) and err <= 2e-3 and torch.isfinite(got).all()):
+            raise AssertionError(f"K1′ disagrees with its twin at {sr} Hz {tuple(shape)}: max-abs {err}")
+    records["logmel"] = k1p
 
     # ---- K2: dense-block kernel vs its plain twin, the three flagship blocks
     cfg = TSVADConfig()
@@ -296,7 +328,7 @@ def main() -> int:
     # ---- the main path: full-width TS-VAD forward through the kernels
     from speaker_diarization_tpu_torch.models import mamba as MB
 
-    wrappers = {"fbank": K1.fbank_cuda, "cam_block": K2.cam_dense_block_cuda,
+    wrappers = {"fbank": K1.fbank_cuda, "logmel": K1.logmel_cuda, "cam_block": K2.cam_dense_block_cuda,
                 "selective_scan_fwd": K3.selective_scan_fwd, "selective_scan_fwd_states": K3.selective_scan_fwd_states,
                 "selective_scan_bwd": K3.selective_scan_bwd}
 
@@ -325,19 +357,21 @@ def main() -> int:
         if tuple(logits.shape) != (64, 100, 4) or not torch.isfinite(logits).all():
             raise AssertionError("bad logits from the main path")
 
-        def plain_forward(m, a, e, n_label=n_label):
-            """The same model with every kernel replaced by its plain twin."""
-            saved = (FE.kaldi_fbank_auto, CF._dense_block_auto, MB.selective_scan_auto)
+        def plain_forward(fn, *args):
+            """fn(*args) with every kernel replaced by its plain twin."""
+            saved = (FE.kaldi_fbank_auto, FE.eend_frontend_auto, CF._dense_block_auto, MB.selective_scan_auto)
             FE.kaldi_fbank_auto = lambda w, sample_rate, num_mel_bins, mean_norm: FE.kaldi_fbank_torch(
                 w, sample_rate=sample_rate, num_mel_bins=num_mel_bins, mean_norm=mean_norm)
+            FE.eend_frontend_auto = lambda a, n, fs, sh, sr, n_mels, c, ss, mn: FE.splice_subsample(
+                FE.logmel_frames_torch(a, FE.count_frames(n, sh), fs, sh, sr, n_mels, mn), c, ss)
             CF._dense_block_auto = lambda h, bp, dil, dtype: K2.cam_dense_block_infer(h, bp, dil, dtype=dtype)
             MB.selective_scan_auto = selective_scan_sequential
             try:
-                return m(a, e, n_label)
+                return fn(*args)
             finally:
-                FE.kaldi_fbank_auto, CF._dense_block_auto, MB.selective_scan_auto = saved
+                FE.kaldi_fbank_auto, FE.eend_frontend_auto, CF._dense_block_auto, MB.selective_scan_auto = saved
 
-        ref = plain_forward(model, audios[1], embss[1])
+        ref = plain_forward(model, audios[1], embss[1], n_label)
         mean_err = (logits - ref).abs().mean().item()
         scale = max(1.0, ref.abs().mean().item())
         phase("forward", f"bf16 logits vs plain twins: mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f}), "
@@ -346,7 +380,7 @@ def main() -> int:
             raise AssertionError(f"bf16 main path disagrees with the plain twins: mean-abs {mean_err}")
         m32 = TSVADModel(cfg, dtype="fp32", device=dev, seed=0)
         a8, e8 = audios[2][:8], embss[2][:8]
-        got32, ref32 = m32(a8, e8, n_label), plain_forward(m32, a8, e8)
+        got32, ref32 = m32(a8, e8, n_label), plain_forward(m32, a8, e8, n_label)
         err32, scale32 = (got32 - ref32).abs().max().item(), max(1.0, ref32.abs().max().item())
         phase("forward", f"fp32 logits (B=8) vs plain twins: max-abs {err32:.3e} (bar 1e-3 x {scale32:.3f})")
         if not err32 <= 1e-3 * scale32:
@@ -380,14 +414,14 @@ def main() -> int:
             raise AssertionError(f"Mamba path launches {mlaunches}, want fbank 1, cam_block 3, selective_scan_fwd 8")
         if tuple(mlogits.shape) != (64, 100, 4) or not torch.isfinite(mlogits).all():
             raise AssertionError("bad logits from the Mamba path")
-        ref = plain_forward(mmodel, audios[1], embss[1])
+        ref = plain_forward(mmodel, audios[1], embss[1], n_label)
         mean_err, scale = (mlogits - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
         phase("mamba", f"bf16 logits vs plain twins: mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f}), "
               f"max-abs {(mlogits - ref).abs().max().item():.3e}")
         if not mean_err <= 5e-2 * scale:
             raise AssertionError(f"bf16 Mamba path disagrees with the plain twins: mean-abs {mean_err}")
         m32 = TSVADModel(mcfg, dtype="fp32", device=dev, seed=0)
-        got32, ref32 = m32(audios[2][:8], embss[2][:8], n_label), plain_forward(m32, audios[2][:8], embss[2][:8])
+        got32, ref32 = m32(audios[2][:8], embss[2][:8], n_label), plain_forward(m32, audios[2][:8], embss[2][:8], n_label)
         err32, scale32 = (got32 - ref32).abs().max().item(), max(1.0, ref32.abs().max().item())
         phase("mamba", f"fp32 logits (B=8) vs plain twins: max-abs {err32:.3e} (bar 1e-3 x {scale32:.3f})")
         if not err32 <= 1e-3 * scale32:
@@ -426,6 +460,95 @@ def main() -> int:
     phase("throughput", f"TS-VAD-Mamba train step (recipe: adam, poly, bf16, batch 64 x 4 s): "
           f"{tt['ms_per_step']:.3f} ms/step (loss checksum {tt['witness']:.6e}, reps {[round(r, 4) for r in tt['reps_s']]})")
     del tmodel, fixed, batches
+
+    # ---- the EEND family's main path: full-width bf16 EEND forward and
+    # EendEdaModel.infer through K1′ (TrainCliConfig widths, 8 kHz, batch 32
+    # × one 500-frame chunk = 50 s)
+    from speaker_diarization_tpu_torch.bench import (EEND_BATCH, eend_forward, eend_model, eend_recipe_trainer,
+                                                     eend_throughput, make_eend_batches)
+    from speaker_diarization_tpu_torch.train.tasks import make_eda_loss, make_eend_loss
+
+    eend_launches = {}
+    for fam, tag in (("eend", "eend"), ("eend_eda", "eda")):
+        emodel, ecfg = eend_model(fam, dev, seed=3)
+        eb = make_eend_batches(ecfg, EEND_BATCH, 3, seed=4, device=dev)
+        fwd = eend_forward(emodel)
+        want_shape = (EEND_BATCH, ecfg.chunk_frames, ecfg.n_speakers if fam == "eend" else ecfg.max_attractors)
+        with torch.no_grad():
+            fwd(eb[0]["audio"], eb[0]["frame_mask"])  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            if fam == "eend":
+                out, probs = emodel(eb[1]["audio"], eb[1]["frame_mask"]), None
+            else:
+                out, probs = emodel.infer(eb[1]["audio"], eb[1]["frame_mask"])
+            torch.cuda.synchronize()
+            eend_launches[fam] = read_counts()
+            phase(tag, f"{fam} bf16 {tuple(eb[1]['audio'].shape)} -> logits {tuple(out.shape)}"
+                  + (f", exist probs {tuple(probs.shape)}" if probs is not None else "")
+                  + f"; launches {eend_launches[fam]}")
+            if eend_launches[fam] != want(logmel=1):
+                raise AssertionError(f"{fam} forward launches {eend_launches[fam]}, want logmel 1")
+            if tuple(out.shape) != want_shape or not torch.isfinite(out).all() or (
+                    probs is not None and (tuple(probs.shape) != (EEND_BATCH, ecfg.max_attractors)
+                                           or not torch.isfinite(probs).all())):
+                raise AssertionError(f"bad {fam} outputs")
+            if fam == "eend":
+                ref, ref_p = plain_forward(emodel, eb[1]["audio"], eb[1]["frame_mask"]), None
+            else:
+                ref, ref_p = plain_forward(emodel.infer, eb[1]["audio"], eb[1]["frame_mask"])
+            mean_err, scale = (out - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
+            p_err = 0.0 if probs is None else (probs - ref_p).abs().mean().item()
+            phase(tag, f"bf16 logits vs plain twin: mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f}), max-abs "
+                  f"{(out - ref).abs().max().item():.3e}" + ("" if probs is None else
+                                                           f"; exist probs mean-abs {p_err:.3e} (bar 5e-2)"))
+            if not (mean_err <= 5e-2 * scale and p_err <= 5e-2):
+                raise AssertionError(f"bf16 {fam} forward disagrees with the plain twin: {mean_err}, {p_err}")
+            m32, _ = eend_model(fam, dev, seed=3, bf16=False)
+            a8, f8 = eb[2]["audio"][:8], eb[2]["frame_mask"][:8]
+            f8 = f8.clone()
+            f8[1, 400:] = 0.0  # padded frames too
+            f32 = eend_forward(m32)
+            got32, ref32 = f32(a8, f8), plain_forward(f32, a8, f8)
+            err32, scale32 = (got32 - ref32).abs().max().item(), max(1.0, ref32.abs().max().item())
+            phase(tag, f"fp32 logits (B=8, one item half padded) vs plain twin: max-abs {err32:.3e} "
+                  f"(bar 1e-3 x {scale32:.3f})")
+            if not err32 <= 1e-3 * scale32:
+                raise AssertionError(f"fp32 {fam} forward disagrees with the plain twin: max-abs {err32}")
+            del m32
+        tpe = eend_throughput(emodel, eb, iters=5 if fam == "eend_eda" else 10, reps=3)
+        phase("throughput", f"{fam} bf16 batch {EEND_BATCH} x 50 s: {tpe['ms_per_forward']:.3f} ms/forward, "
+              f"{tpe['audio_s_per_s']:.1f} audio-s/s (checksum {tpe['witness']:.6e}, "
+              f"reps {[round(r, 4) for r in tpe['reps_s']]})")
+
+        # five adam steps at a constant rate on one fixed batch: the loss must
+        # fall. Dropout off and (EDA) no frame shuffle, so that the loss moves
+        # only with the weights; random full-width EDA weights make the
+        # 500-step LSTM chaotic, and a first adam step above a few 1e-6 (every
+        # weight moves by lr) throws the attractors about before it helps
+        fmodel, _ = eend_model(fam, dev, seed=3, dropout=0.0)
+        loss = make_eend_loss() if fam == "eend" else make_eda_loss(shuffle_frames=False)
+        lr = 1e-4 if fam == "eend" else 3e-6
+        fixed = Trainer(fmodel, loss, TrainerConfig(optimizer="adam", schedule="const", learning_rate=lr))
+        elosses = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            reset_counts()
+            aux = fixed.train_step(eb[0])
+            torch.cuda.synchronize()
+            etl = read_counts()
+            elosses.append(aux["loss"].item())
+            if etl != want(logmel=1):
+                raise AssertionError(f"{fam} train step {i} launches {etl}, want logmel 1")
+        phase("train", f"{fam}: 5 adam steps at {lr:g} on one batch (bf16, dropout 0, {EEND_BATCH} x 50 s): losses "
+              f"{[round(v, 5) for v in elosses]}; launches per step {etl}")
+        if not (all(math.isfinite(v) for v in elosses) and elosses[-1] < elosses[0]):
+            raise AssertionError(f"the {fam} loss did not fall on a fixed batch: {elosses}")
+        tte = train_throughput(eend_recipe_trainer(emodel, fam), eb, iters=3, reps=3)
+        phase("throughput", f"{fam} train step (recipe: adam, noam, lr 1.0, warmup 800, clip 5, bf16, batch "
+              f"{EEND_BATCH} x 50 s): {tte['ms_per_step']:.3f} ms/step (loss checksum {tte['witness']:.6e}, "
+              f"reps {[round(r, 4) for r in tte['reps_s']]})")
+        del emodel, fmodel, fixed, eb
 
     # ---- the entry point answers requests: CLI infer + score on a generated corpus
     from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
@@ -516,10 +639,60 @@ def main() -> int:
         if not best or n_rttm != 18:
             raise AssertionError(f"CLI infer --exp-dir wrote {n_rttm} RTTMs:\n{res.stdout}")
 
+    # ---- the EEND training and inference entry points: cli train (a few
+    # steps, validation, checkpoints) → infer --exp-dir --threshold-sweep → score
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eend_") as tmp:
+        tr = write_synthetic_corpus(os.path.join(tmp, "train"), n_recs=3, seconds=100.0, rate=8000, n_speakers=2,
+                                    seed=20, prefix="tr")
+        va = write_synthetic_corpus(os.path.join(tmp, "valid"), n_recs=2, seconds=110.0, rate=8000, n_speakers=2,
+                                    seed=21, prefix="va")
+        for fam in ("eend", "eend_eda"):
+            exp = os.path.join(tmp, "exp_" + fam)
+            sets = ["batch_size=32", "bf16=true", "warmup_steps=800", "num_steps=4", "log_every=2", "valid_every=2"]
+            cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "train", "--family", fam,
+                   "--train-dir", tr["data_dir"], "--valid-dir", va["data_dir"], "--exp-dir", exp]
+            cmd += [a for kv in sets for a in ("--set", kv)]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise RuntimeError(f"CLI train --family {fam} failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
+            with open(os.path.join(exp, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            trains = [r for r in recs if r["kind"] == "train"]
+            valids = [r for r in recs if r["kind"] == "valid"]
+            ckpts = sorted(fn for fn in os.listdir(exp) if fn.startswith("step_"))
+            phase("cli", f"train --family {fam} (bf16, 6 chunks of 50 s, 4 steps): {time.perf_counter() - t0:.1f} s; "
+                  f"last log {trains[-1] if trains else None}; valid losses {[round(r['loss'], 5) for r in valids]}; "
+                  f"checkpoints {ckpts}")
+            if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in recs) or not ckpts:
+                raise AssertionError(f"CLI train --family {fam} did not log, validate and checkpoint as asked: {recs}")
+            out = os.path.join(tmp, "hyp_" + fam)
+            cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "infer", "--data-dir", va["data_dir"],
+                   "--exp-dir", exp, "--out", out, "--threshold-sweep", "--ref", va["rttm"]]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise RuntimeError(f"CLI infer --exp-dir ({fam}) failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
+            best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", res.stdout)
+            n_rttm = sum(fn.startswith(f"hyp_{fam}_") for fn in os.listdir(tmp))
+            phase("cli", f"infer --exp-dir ({fam}): {n_rttm} RTTMs, best threshold {best.group(1) if best else None} "
+                  f"DER {best.group(2) if best else None}% (4 steps of training), {time.perf_counter() - t0:.1f} s")
+            if not best or n_rttm != 18:
+                raise AssertionError(f"CLI infer --exp-dir ({fam}) wrote {n_rttm} RTTMs:\n{res.stdout}")
+            res = subprocess.run([sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "score", "--ref", va["rttm"],
+                                  "--sys", f"{out}_{float(best.group(1)):.2f}"], cwd=REPO, capture_output=True,
+                                 text=True, timeout=300)
+            line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+            if res.returncode != 0 or not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
+                raise RuntimeError(f"CLI score ({fam}) failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            phase("cli", f"score ({fam}): DER/MS/FA/SC {line}")
+
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (
         ("fbank", "speaker_diarization_tpu_torch/csrc/fbank.cu", "speaker_diarization_tpu/kernels/fbank_pallas.py:43", mlaunches),
+        ("logmel", "speaker_diarization_tpu_torch/csrc/fbank.cu", "speaker_diarization_tpu/kernels/fbank_pallas.py:195",
+         eend_launches["eend"]),
         ("cam_block", "speaker_diarization_tpu_torch/csrc/cam_block.cu", "speaker_diarization_tpu/kernels/cam_block_pallas.py:43", mlaunches),
         ("selective_scan_fwd", scan_src, f"{scan_tpu}:50", mlaunches),
         ("selective_scan_fwd_states", scan_src, f"{scan_tpu}:148", tlaunches),

@@ -1,17 +1,29 @@
-"""TS-VAD inference and training throughput of the port on one GPU.
+"""Inference and training throughput of the port on one GPU.
 
-Measures what the JAX package's bench.py measures, on the card: audio
-seconds per second of the full-size TS-VAD forward (TSVADConfig(), CAM++
-12/24/16, bf16) at batch 64 × 4 s chunks, with seeded random weights;
-`--backend mamba` swaps both backends for BiMamba (S6, d_state 64).
-`--train` instead times train steps at the hermetic recipe's settings
-(batch 64 × 4 s, bf16, adam, poly schedule, lr 2e-4, warmup 400, clip 5)
-on seeded random batches. Completion is proven by a data dependency: every
-forward's probability checksum (every step's loss) is chained into one
-device scalar that is read on the host after torch.cuda.synchronize(), so
-the clock cannot stop before every forward or step ran.
+TS-VAD (the default family) measures what the JAX package's bench.py
+measures, on the card: audio seconds per second of the full-size TS-VAD
+forward (TSVADConfig(), CAM++ 12/24/16, bf16) at batch 64 × 4 s chunks, with
+seeded random weights; `--backend mamba` swaps both backends for BiMamba
+(S6, d_state 64). `--train` instead times train steps at the hermetic
+recipe's settings (batch 64 × 4 s, bf16, adam, poly schedule, lr 2e-4,
+warmup 400, clip 5) on seeded random batches.
 
-    python -m speaker_diarization_tpu_torch.bench [--backend mamba] [--train] [--profile profile.txt]
+`--family eend|eend_eda` measures the EEND family at the JAX CLI's
+TrainCliConfig widths (d_model 256, 4 layers, 4 heads, d_ff 1024; EDA
+decodes 15 attractors) and front-end (8 kHz, frame 200 / shift 80, 23 mels,
+context 7, subsampling 10), bf16, at the recipe's batch 32
+(recipes/mini_librispeech_eend.sh:31) × one 500-frame chunk (50 s): audio
+seconds per second of the forward (`EendEdaModel.infer` for EDA), or with
+`--train` ms per step at the recipe's settings (adam, noam, lr 1.0, warmup
+800, clip 5).
+
+Completion is proven by a data dependency: every forward's probability
+checksum (every step's loss) is chained into one device scalar that is read
+on the host after torch.cuda.synchronize(), so the clock cannot stop before
+every forward or step ran.
+
+    python -m speaker_diarization_tpu_torch.bench [--family tsvad|eend|eend_eda] [--backend mamba] \\
+        [--train] [--profile profile.txt]
 
 `--profile` also records a torch.profiler window of a few forwards (train
 steps with `--train`), writes the device time per kernel, and reports the
@@ -33,6 +45,27 @@ import torch
 from .models.tsvad import TSVADConfig, TSVADModel
 
 BATCH, CHUNK_S = 64, 4.0  # the JAX bench's shape (reference run_ts_vad2.sh:198)
+EEND_BATCH = 32  # recipes/mini_librispeech_eend.sh:31
+
+
+def _pipelined(call: Callable[[int], torch.Tensor], device, iters: int, reps: int) -> Tuple[float, float, List[float]]:
+    """(median seconds, checksum, seconds per rep) of `reps` runs of `iters`
+    pipelined calls; call(i) returns a device scalar chained into the checksum."""
+    for i in range(2):  # warm-up: kernel builds, cuDNN plans, allocator
+        call(i).item()
+    dts, witness = [], 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = torch.zeros((), dtype=torch.float64, device=device)
+        for i in range(iters):
+            acc += call(i)
+        torch.cuda.synchronize()
+        witness = acc.item()
+        dts.append(time.perf_counter() - t0)
+        if not np.isfinite(witness):
+            raise RuntimeError(f"non-finite checksum {witness}")
+    return statistics.median(dts), witness, dts
 
 
 def make_inputs(cfg: TSVADConfig, batch: int, chunk_s: float, n_bufs: int, seed: int, device) -> Tuple[List, List]:
@@ -50,24 +83,69 @@ def make_inputs(cfg: TSVADConfig, batch: int, chunk_s: float, n_bufs: int, seed:
 @torch.no_grad()
 def throughput(model: TSVADModel, audios, embss, n_label: int, iters: int = 20, reps: int = 3) -> Dict[str, float]:
     """Median over `reps` of `iters` pipelined forwards on distinct inputs."""
-    for i in range(2):  # warm-up: kernel builds, cuDNN plans, allocator
-        torch.sigmoid(model(audios[i % len(audios)], embss[i % len(embss)], n_label)).sum().item()
-    dts, witness = [], 0.0
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc = torch.zeros((), dtype=torch.float64, device=audios[0].device)
-        for i in range(iters):
-            acc += torch.sigmoid(model(audios[i % len(audios)], embss[i % len(embss)], n_label)).sum()
-        torch.cuda.synchronize()
-        witness = acc.item()
-        dts.append(time.perf_counter() - t0)
-        if not np.isfinite(witness):
-            raise RuntimeError(f"non-finite checksum {witness}")
-    dt = statistics.median(dts)
+    dt, witness, dts = _pipelined(
+        lambda i: torch.sigmoid(model(audios[i % len(audios)], embss[i % len(embss)], n_label)).sum(),
+        audios[0].device, iters, reps)
     B, N = audios[0].shape
     audio_s = B * N / model.cfg.sample_rate
     return dict(ms_per_forward=1e3 * dt / iters, audio_s_per_s=audio_s * iters / dt, witness=witness, reps_s=dts)
+
+
+def eend_model(family: str, device, seed: int = 0, bf16: bool = True, **overrides):
+    """The family's model at the JAX CLI's TrainCliConfig defaults (and
+    `overrides` of its fields), seeded random weights."""
+    from .cli.main import TrainCliConfig, build_model
+
+    cfg = TrainCliConfig(family=family, bf16=bf16, seed=seed, **overrides)
+    return build_model(cfg, device), cfg
+
+
+def make_eend_batches(cfg, batch: int, n_bufs: int, seed: int, device) -> List[Dict]:
+    """Distinct seeded {audio, frame_mask, labels, spk_mask} device batches of one full chunk each."""
+    from .cli.main import frontend_config
+
+    rng = np.random.default_rng(seed)
+    n = frontend_config(cfg).chunk_samples(cfg.chunk_frames)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return [
+        dict(audio=t((0.1 * rng.standard_normal((batch, n))).astype(np.float32)),
+             frame_mask=t(np.ones((batch, cfg.chunk_frames), np.float32)),
+             labels=t((rng.random((batch, cfg.chunk_frames, cfg.n_speakers)) < 0.3).astype(np.float32)),
+             spk_mask=t(np.ones((batch, cfg.n_speakers), np.float32)))
+        for _ in range(n_bufs)
+    ]
+
+
+def eend_forward(model):
+    """(audio, frame_mask) → the logits a user's inference computes (EDA: `infer`'s)."""
+    from .models.eda import EendEdaModel
+
+    if isinstance(model, EendEdaModel):
+        return lambda a, m: model.infer(a, m)[0]
+    return lambda a, m: model(a, m)
+
+
+@torch.no_grad()
+def eend_throughput(model, batches, iters: int = 10, reps: int = 3) -> Dict[str, float]:
+    """Median over `reps` of `iters` pipelined EEND / EDA forwards on distinct chunks."""
+    fwd = eend_forward(model)
+    dt, witness, dts = _pipelined(
+        lambda i: torch.sigmoid(fwd(batches[i % len(batches)]["audio"], batches[i % len(batches)]["frame_mask"])).sum(),
+        batches[0]["audio"].device, iters, reps)
+    B, N = batches[0]["audio"].shape
+    audio_s = B * N / model.frontend.sample_rate
+    return dict(ms_per_forward=1e3 * dt / iters, audio_s_per_s=audio_s * iters / dt, witness=witness, reps_s=dts)
+
+
+def eend_recipe_trainer(model, family: str, seed: int = 0):
+    """A Trainer with the EEND recipe's settings (TrainCliConfig defaults and
+    warmup 800, mini_librispeech_eend.sh:32)."""
+    from .train.tasks import make_eda_loss, make_eend_loss
+    from .train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(optimizer="adam", schedule="noam", learning_rate=1.0, d_model=256, warmup_steps=800,
+                         grad_clip_norm=5.0, seed=seed)
+    return Trainer(model, make_eend_loss() if family == "eend" else make_eda_loss(), tcfg)
 
 
 def profile(step: Callable[[], object], n: int = 3) -> Tuple[str, float]:
@@ -114,51 +192,56 @@ def recipe_trainer(model: TSVADModel, n_label: int, seed: int = 0):
 
 def train_throughput(trainer, batches, iters: int = 5, reps: int = 3) -> Dict[str, float]:
     """Median over `reps` of `iters` pipelined train steps on distinct batches."""
-    for i in range(2):  # warm-up: kernel builds, cuDNN plans, allocator
-        trainer.train_step(batches[i % len(batches)])["loss"].item()
-    dts, witness = [], 0.0
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc = torch.zeros((), dtype=torch.float64, device=batches[0]["audio"].device)
-        for i in range(iters):
-            acc += trainer.train_step(batches[i % len(batches)])["loss"]
-        torch.cuda.synchronize()
-        witness = acc.item()
-        dts.append(time.perf_counter() - t0)
-        if not np.isfinite(witness):
-            raise RuntimeError(f"non-finite loss checksum {witness}")
-    dt = statistics.median(dts)
+    dt, witness, dts = _pipelined(lambda i: trainer.train_step(batches[i % len(batches)])["loss"],
+                                  batches[0]["audio"].device, iters, reps)
     return dict(ms_per_step=1e3 * dt / iters, witness=witness, reps_s=dts)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--family", choices=["tsvad", "eend", "eend_eda"], default="tsvad")
     ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add"], default="transformer",
-                    help="both TS-VAD backends")
+                    help="tsvad: both backends")
     ap.add_argument("--train", action="store_true", help="time train steps instead of forwards")
     ap.add_argument("--profile", help="write a profiler table of a few forwards (train steps) to this file")
     args = ap.parse_args(argv)
-    cfg = TSVADConfig(single_backend_type=args.backend, multi_backend_type=args.backend)
-    model = TSVADModel(cfg, dtype="bf16", device="cuda", seed=0)
-    T = int(CHUNK_S * cfg.label_rate)
-    meta = dict(device=torch.cuda.get_device_name(0), backend=args.backend, batch=BATCH, chunk_s=CHUNK_S, dtype="bf16")
-    if args.train:
-        trainer = recipe_trainer(model, T)
-        batches = make_train_batches(cfg, BATCH, CHUNK_S, 4, 0, model.device)
-        res, per_call = train_throughput(trainer, batches), "ms_per_step"
+    meta = dict(device=torch.cuda.get_device_name(0), family=args.family, dtype="bf16")
+    per_call = "ms_per_step" if args.train else "ms_per_forward"
+    if args.family == "tsvad":
+        cfg = TSVADConfig(single_backend_type=args.backend, multi_backend_type=args.backend)
+        model = TSVADModel(cfg, dtype="bf16", device="cuda", seed=0)
+        T = int(CHUNK_S * cfg.label_rate)
+        meta.update(backend=args.backend, batch=BATCH, chunk_s=CHUNK_S)
+        if args.train:
+            trainer = recipe_trainer(model, T)
+            batches = make_train_batches(cfg, BATCH, CHUNK_S, 4, 0, model.device)
+            res = train_throughput(trainer, batches)
+        else:
+            audios, embss = make_inputs(cfg, BATCH, CHUNK_S, 8, seed=0, device=model.device)
+            res = throughput(model, audios, embss, T)
 
-        def step():
-            return trainer.train_step(batches[0])
+            def forward():
+                return model(audios[0], embss[0], T)
     else:
-        audios, embss = make_inputs(cfg, BATCH, CHUNK_S, 8, seed=0, device=model.device)
-        res, per_call = throughput(model, audios, embss, T), "ms_per_forward"
+        model, cfg = eend_model(args.family, "cuda")
+        batches = make_eend_batches(cfg, EEND_BATCH, 4, 0, model.device)
+        meta.update(batch=EEND_BATCH, chunk_s=batches[0]["audio"].shape[1] / cfg.sample_rate)
+        if args.train:
+            trainer = eend_recipe_trainer(model, args.family)
+            res = train_throughput(trainer, batches)
+        else:
+            res = eend_throughput(model, batches)
+            fwd = eend_forward(model)
 
-        @torch.no_grad()
-        def step():
-            return model(audios[0], embss[0], T)
+            def forward():
+                return fwd(batches[0]["audio"], batches[0]["frame_mask"])
     res.update(meta)
     if args.profile:
+        if args.train:
+            def step():
+                return trainer.train_step(batches[0])
+        else:
+            step = torch.no_grad()(forward)
         table, device_ms = profile(step)
         with open(args.profile, "w") as f:
             f.write(table)

@@ -1,22 +1,31 @@
-"""Command-line interface of the PyTorch port: TS-VAD training, inference, scoring.
+"""Command-line interface of the PyTorch port: training, inference, scoring.
 
+    python -m speaker_diarization_tpu_torch.cli train --family eend|eend_eda \\
+        --train-dir D[,D2] [--valid-dir V] --exp-dir X [--resume] \\
+        [--set key=value ...] [--config train.json] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli train --family tsvad \\
         --train-dir D --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
         [--noise-dir N] [--rir-dir R] [--encoder-ckpt enc.npz] [--resume] \\
         [--set key=value ...] [--config train.json] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli infer [--family eend|eend_eda] \\
+        --data-dir DIR --exp-dir X [--step S] [--avg-last K] --out hyp.rttm \\
+        [--set key=value ...] [--attractor-threshold 0.5] \\
+        [--threshold-sweep --ref ref.rttm] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli infer --family tsvad \\
         --data-dir DIR --emb-store EMB.npz (--exp-dir X [--step S] [--avg-last K] \\
         | --params PARAMS.npz [--config tsvad.json]) --out hyp.rttm \\
         [--set key=value ...] [--rs-len 4] [--threshold-sweep --ref ref.rttm] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm
 
-Flag names, `--set` keys and defaults follow the JAX package's CLI
-(`TrainCliConfig`, cli/main.py:33-110, the TS-VAD fields). `train` writes
-torch checkpoints and its config (train_config.json) into --exp-dir; `infer
---exp-dir` rebuilds the model from that config (then --set) and restores
-the best checkpoint by validation loss, else the latest. `--params` takes
-the JAX TSVADModel variables as one flax-layout .npz (utils/convert.py);
-reading the JAX trainer's Orbax directories waits for ROADMAP item 6.
+Ported families: eend, eend_eda (transformer encoder) and tsvad. Flag
+names, `--set` keys and defaults follow the JAX package's CLI
+(`TrainCliConfig`, cli/main.py:33-110). `train` writes torch checkpoints
+and its config (train_config.json) into --exp-dir; `infer --exp-dir`
+rebuilds the model from that config (its family unless --family is given,
+then --set) and restores the best checkpoint by validation loss, else the
+latest. `--params` takes the JAX TSVADModel variables as one flax-layout
+.npz (utils/convert.py); reading the JAX trainer's Orbax directories waits
+for ROADMAP item 6.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import sys
 
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
+FAMILIES = ("eend", "eend_eda", "tsvad")  # the ported ones
 
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
@@ -40,20 +50,29 @@ _PARAMS_HELP = (
 
 @dataclasses.dataclass
 class TrainCliConfig:
-    """The TS-VAD fields of the JAX CLI's TrainCliConfig, same names and defaults."""
+    """The EEND and TS-VAD fields of the JAX CLI's TrainCliConfig, same
+    names and defaults (the family defaults to tsvad here)."""
 
-    family: str = "tsvad"
+    family: str = "tsvad"  # eend | eend_eda | tsvad
     # model
-    n_speakers: int = 2  # > 2 sets max_num_speaker, else 4
-    d_model: int = 256  # noam's d_model
-    n_layers: int = 4  # layers per backend
+    n_speakers: int = 2  # tsvad: > 2 sets max_num_speaker, else 4
+    max_attractors: int = 15  # eend_eda: attractors decoded at inference
+    d_model: int = 256  # EEND width; noam's d_model
+    n_layers: int = 4  # EEND encoder layers; TS-VAD layers per backend
     n_heads: int = 4
     d_ff: int = 1024
     dropout: float = 0.1
+    encoder_type: str = "transformer"  # eend_eda: transformer (conformer: ROADMAP item 9)
     bf16: bool = False
     remat: bool = False
     sample_rate: int = 8000
+    # front-end (EEND family)
+    frame_size: int = 200
+    frame_shift: int = 80
     n_mels: int = 23  # 23 (the EEND default) means 80 for TS-VAD's CAM++ fbank
+    context_size: int = 7
+    subsampling: int = 10
+    chunk_frames: int = 500
     # tsvad
     rs_len: float = 4.0
     segment_shift: float = 2.0
@@ -109,8 +128,8 @@ def _cli_config(args, base: TrainCliConfig) -> TrainCliConfig:
     cfg = dataclasses.replace(base, family=args.family or base.family)
     if args.set:
         cfg = apply_overrides(cfg, args.set)
-    if cfg.family != "tsvad":
-        raise SystemExit(f"family {cfg.family!r} is not ported yet; only 'tsvad' is")
+    if cfg.family not in FAMILIES:
+        raise SystemExit(f"family {cfg.family!r} is not ported yet; ported: {', '.join(FAMILIES)}")
     if cfg.remat:
         raise NotImplementedError("remat is not ported to PyTorch yet (ROADMAP item 6)")
     return cfg
@@ -148,53 +167,123 @@ def _load_encoder(model, path: str) -> None:
     logging.info("loaded speech encoder from %s", path)
 
 
-def cmd_train(args) -> int:
+def frontend_config(cfg: TrainCliConfig):
+    """TrainCliConfig → the EEND family's FrontendConfig (JAX _frontend_from_cfg)."""
+    from ..models.eend import FrontendConfig
+
+    return FrontendConfig(sample_rate=cfg.sample_rate, frame_size=cfg.frame_size, frame_shift=cfg.frame_shift,
+                          n_mels=cfg.n_mels, context_size=cfg.context_size, subsampling=cfg.subsampling)
+
+
+def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
+    """The family's model at the config's widths, as the JAX CLI's
+    _build_model builds it, with weights drawn from cfg.seed."""
+    dtype = "bf16" if (cfg.bf16 or bf16) else "fp32"
+    if cfg.family == "tsvad":
+        from ..models.tsvad import TSVADModel
+
+        return TSVADModel(tsvad_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    common = dict(d_model=cfg.d_model, n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_ff=cfg.d_ff, dropout=cfg.dropout,
+                  frontend=frontend_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "eend":
+        from ..models.eend import EENDModel
+
+        return EENDModel(n_speakers=cfg.n_speakers, **common)
+    from ..models.eda import EendEdaModel
+
+    return EendEdaModel(n_speakers=cfg.n_speakers, max_attractors=cfg.max_attractors,
+                        encoder_type=cfg.encoder_type, **common)
+
+
+def _tsvad_data(args, cfg: TrainCliConfig, model):
+    """TS-VAD: (loss_fn, train iterator factory, valid iterator factory, sizes)."""
     from ..data.tsvad_dataset import TSVADChunkDataset, tsvad_batch_iterator
     from ..infer.embeddings import EmbeddingStore
-    from ..models.tsvad import TSVADModel
-    from ..train.checkpoints import CheckpointManager
-    from ..train.loop import run_training
     from ..train.tasks import make_tsvad_loss
-    from ..train.trainer import Trainer, TrainerConfig
-    from ..utils.config import load_json
-    from ..utils.device import resolve_device
 
-    cfg = _cli_config(args, load_json(TrainCliConfig, args.config) if args.config else TrainCliConfig())
-    dev = resolve_device(args.device)
+    if not args.emb_store:
+        raise SystemExit("train --family tsvad needs --emb-store")
     if "," in args.train_dir:
-        raise SystemExit("several --train-dir corpora are not ported yet; pass one directory")
-    mcfg = tsvad_config(cfg)
-    model = TSVADModel(mcfg, dtype="bf16" if cfg.bf16 else "fp32", device=dev, seed=cfg.seed)
+        raise SystemExit("several --train-dir corpora are not ported yet for tsvad; pass one directory")
     if args.encoder_ckpt:
         _load_encoder(model, args.encoder_ckpt)
     store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
-    common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=mcfg.max_num_speaker,
+    common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=model.cfg.max_num_speaker,
                   enhancer=cfg.enhancer or None)
     train_ds = TSVADChunkDataset(args.train_dir, store, segment_shift=cfg.segment_shift, is_train=True,
                                  seed=cfg.seed, noise_dir=args.noise_dir, rir_dir=args.rir_dir, **common)
     valid_ds = None
     if args.valid_dir:
         valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=cfg.rs_len, is_train=False, **common)
-    T = int(cfg.rs_len * 25)
+    return (
+        make_tsvad_loss(int(cfg.rs_len * 25), cfg.freeze_encoder),
+        lambda ep: tsvad_batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
+        (lambda: tsvad_batch_iterator(valid_ds, cfg.batch_size, False)) if valid_ds else None,
+        (len(train_ds), len(valid_ds) if valid_ds else 0),
+    )
+
+
+def _eend_data(args, cfg: TrainCliConfig):
+    """EEND / EEND-EDA: (cfg with the batch clamped to the chunks there are,
+    loss_fn, train iterator factory, valid iterator factory, sizes); a comma
+    list of --train-dir trains on the corpora jointly."""
+    from ..data.eend_dataset import ConcatChunkDataset, EendChunkDataset, batch_iterator
+    from ..train.tasks import make_eda_loss, make_eend_loss
+
+    fe = frontend_config(cfg)
+    dss = [EendChunkDataset(d, cfg.chunk_frames, fe, cfg.n_speakers) for d in args.train_dir.split(",")]
+    train_ds = dss[0] if len(dss) == 1 else ConcatChunkDataset(dss)
+    valid_ds = EendChunkDataset(args.valid_dir, cfg.chunk_frames, fe, cfg.n_speakers) if args.valid_dir else None
+    n_chunks = len(train_ds.chunks)
+    if n_chunks == 0:
+        raise SystemExit(f"no training chunks: recordings shorter than chunk_frames={cfg.chunk_frames} "
+                         f"subsampled frames? (dir: {args.train_dir})")
+    if cfg.batch_size > n_chunks:
+        logging.warning("batch_size %d > %d available chunks; clamping", cfg.batch_size, n_chunks)
+        cfg = dataclasses.replace(cfg, batch_size=n_chunks)
+    # the iterator drops partial batches, so a small dev set gets a smaller batch
+    vbs = max(1, min(cfg.batch_size, len(valid_ds.chunks))) if valid_ds else 0
+    return (
+        cfg,
+        make_eend_loss() if cfg.family == "eend" else make_eda_loss(),
+        lambda ep: batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
+        (lambda: batch_iterator(valid_ds, vbs, False)) if valid_ds else None,
+        (n_chunks, len(valid_ds.chunks) if valid_ds else 0),
+    )
+
+
+def cmd_train(args) -> int:
+    from ..train.checkpoints import CheckpointManager
+    from ..train.loop import run_training
+    from ..train.trainer import Trainer, TrainerConfig
+    from ..utils.config import load_json
+    from ..utils.device import resolve_device
+
+    cfg = _cli_config(args, load_json(TrainCliConfig, args.config) if args.config else TrainCliConfig())
+    dev = resolve_device(args.device)
+    model = build_model(cfg, dev)
+    if cfg.family == "tsvad":
+        loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
+    else:
+        cfg, loss_fn, make_train, make_valid, sizes = _eend_data(args, cfg)
     tcfg = TrainerConfig(
         optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, schedule=cfg.schedule, d_model=cfg.d_model,
         warmup_steps=cfg.warmup_steps, total_steps=cfg.num_steps, grad_clip_norm=cfg.grad_clip_norm,
         grad_accum_steps=cfg.grad_accum_steps, model_avg_decay=cfg.model_avg_decay or None, seed=cfg.seed,
     )
-    trainer = Trainer(model, make_tsvad_loss(T, cfg.freeze_encoder), tcfg)
+    trainer = Trainer(model, loss_fn, tcfg)
     mgr = CheckpointManager(args.exp_dir, max_to_keep=args.max_to_keep)
     with open(os.path.join(args.exp_dir, TRAIN_CONFIG), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=1)
     if args.resume and mgr.latest_step() is not None:
         trainer.load_state_dict(mgr.restore())
         logging.info("resumed from step %d", trainer.step)
-    logging.info("training %s on %s (%s): %d train windows, %d valid", cfg.family, dev, model.dtype,
-                 len(train_ds), len(valid_ds) if valid_ds else 0)
+    logging.info("training %s on %s (%s): %d train chunks, %d valid", cfg.family, dev, model.dtype, *sizes)
     run_training(
         trainer,
-        lambda ep: tsvad_batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
+        make_train,
         cfg.num_steps,
-        (lambda: tsvad_batch_iterator(valid_ds, cfg.batch_size, False)) if valid_ds else None,
+        make_valid,
         mgr,
         log_every=cfg.log_every,
         valid_every=cfg.valid_every,
@@ -206,15 +295,14 @@ def cmd_train(args) -> int:
 
 
 def _model_from_exp_dir(args, dev):
-    """(model, rs_len) from a `train` run: its config, --set, and the
-    chosen checkpoint's weights (optionally the mean of the last K)."""
-    from ..models.tsvad import TSVADModel
+    """(model, config) from a `train` run: its config, --family and --set,
+    and the chosen checkpoint's weights (optionally the mean of the last K)."""
     from ..train.checkpoints import CheckpointManager, average_checkpoints
     from ..utils.config import load_json
 
     saved = os.path.join(args.exp_dir, TRAIN_CONFIG)
     cfg = _cli_config(args, load_json(TrainCliConfig, saved) if os.path.exists(saved) else TrainCliConfig())
-    model = TSVADModel(tsvad_config(cfg), dtype="bf16" if (cfg.bf16 or args.bf16) else "fp32", device=dev)
+    model = build_model(cfg, dev, bf16=args.bf16)
     mgr = CheckpointManager(args.exp_dir)
     step = args.step or mgr.best_step() or mgr.latest_step()
     if step is None:
@@ -226,34 +314,18 @@ def _model_from_exp_dir(args, dev):
         names = [n for n, _ in model.named_parameters()]
         model.load_state_dict(average_checkpoints(mgr, steps, names), strict=False)
         logging.info("averaged %d checkpoints: %s", len(steps), steps)
-    return model, cfg.rs_len
+    return model, cfg
 
 
-def cmd_infer(args) -> int:
-    from ..data.rttm import write_rttm
+def _tsvad_probs(args, model, rs_len: float):
+    """Overlap-voted TS-VAD probabilities → ({rec: (T, S)}, frame seconds, {rec: speaker names})."""
     from ..data.tsvad_dataset import TSVADChunkDataset
     from ..infer.chunked import make_tsvad_predict, tsvad_infer_dataset
     from ..infer.embeddings import EmbeddingStore
-    from ..models.tsvad import TSVADModel
-    from ..postproc import probs_to_turns
-    from ..utils.convert import load_flax_npz, tsvad_from_flax
-    from ..utils.device import resolve_device
 
-    if args.family != "tsvad":
-        raise SystemExit(f"family {args.family!r} is not ported yet; only 'tsvad' is")
-    if bool(args.exp_dir) == bool(args.params):
-        raise SystemExit("infer needs one of --exp-dir (a `train` run) and --params (a flax npz)")
-    dev = resolve_device(args.device)
-    if args.exp_dir:
-        model, rs_len = _model_from_exp_dir(args, dev)
-    else:
-        model = TSVADModel(_load_config(args.config, args.set), dtype="bf16" if args.bf16 else "fp32", device=dev)
-        model.load_state_dict(tsvad_from_flax(load_flax_npz(args.params)))
-        rs_len = 4.0
-        logging.info("loaded %s on %s (%s)", args.params, model.device, model.dtype)
-    rs_len = args.rs_len or rs_len
+    if not args.emb_store:
+        raise SystemExit("infer --family tsvad needs --emb-store")
     cfg = model.cfg
-
     store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
     ds = TSVADChunkDataset(
         args.data_dir, store, rs_len=rs_len, segment_shift=args.infer_shift,
@@ -261,8 +333,48 @@ def cmd_infer(args) -> int:
     )
     T = int(rs_len * cfg.label_rate)
     probs = tsvad_infer_dataset(make_tsvad_predict(model, T), ds, batch_size=BATCH_SIZE)
-    fs = 1.0 / cfg.label_rate
-    spk_names = ds.rec_speakers  # real speaker names in the RTTM
+    return probs, 1.0 / cfg.label_rate, ds.rec_speakers  # real speaker names in the RTTM
+
+
+def _eend_probs(args, model, cfg: TrainCliConfig):
+    """Chunked EEND / EEND-EDA probabilities → ({rec: (T, S)}, frame seconds, {})."""
+    fe = frontend_config(cfg)
+    if cfg.family == "eend":
+        from ..infer.chunked import infer_dataset, make_eend_predict
+
+        probs = infer_dataset(make_eend_predict(model), args.data_dir, fe, cfg.chunk_frames)
+    else:
+        from ..infer.eda import eda_infer_dataset, make_eda_predict
+
+        probs = eda_infer_dataset(make_eda_predict(model), args.data_dir, fe, cfg.chunk_frames,
+                                  threshold=args.attractor_threshold)
+    return probs, fe.frame_shift * fe.subsampling / fe.sample_rate, {}
+
+
+def cmd_infer(args) -> int:
+    from ..data.rttm import write_rttm
+    from ..models.tsvad import TSVADModel
+    from ..postproc import probs_to_turns
+    from ..utils.convert import load_flax_npz, tsvad_from_flax
+    from ..utils.device import resolve_device
+
+    if bool(args.exp_dir) == bool(args.params):
+        raise SystemExit("infer needs one of --exp-dir (a `train` run) and --params (a flax npz)")
+    if args.params and (args.family or "tsvad") != "tsvad":
+        raise SystemExit("--params takes TS-VAD weights only; the EEND families infer from --exp-dir")
+    dev = resolve_device(args.device)
+    if args.exp_dir:
+        model, cfg = _model_from_exp_dir(args, dev)
+        rs_len = cfg.rs_len
+    else:
+        model = TSVADModel(_load_config(args.config, args.set), dtype="bf16" if args.bf16 else "fp32", device=dev)
+        model.load_state_dict(tsvad_from_flax(load_flax_npz(args.params)))
+        cfg, rs_len = TrainCliConfig(), 4.0
+        logging.info("loaded %s on %s (%s)", args.params, model.device, model.dtype)
+    if cfg.family == "tsvad":
+        probs, fs, spk_names = _tsvad_probs(args, model, args.rs_len or rs_len)
+    else:
+        probs, fs, spk_names = _eend_probs(args, model, cfg)
 
     if args.threshold_sweep:
         # reference sweep (ts_vad2/infer.py:79): one RTTM per threshold;
@@ -316,14 +428,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="train a model (TS-VAD) with periodic validation and checkpoints")
-    t.add_argument("--family", default="tsvad", help="model family; only 'tsvad' is ported")
+    t = sub.add_parser("train", help="train a model with periodic validation and checkpoints")
+    t.add_argument("--family", choices=FAMILIES, help="model family (default: the --config's, else tsvad)")
     t.add_argument("--config", help="TrainCliConfig as JSON (field → value)")
     t.add_argument("--set", action="append", default=[], help="TrainCliConfig override key=value")
-    t.add_argument("--train-dir", required=True)
+    t.add_argument("--train-dir", required=True, help="Kaldi data dir (EEND families: a comma list trains jointly)")
     t.add_argument("--valid-dir")
     t.add_argument("--exp-dir", required=True)
-    t.add_argument("--emb-store", required=True, help="target-speaker embedding npz (comma list merges)")
+    t.add_argument("--emb-store", help="tsvad: target-speaker embedding npz (comma list merges)")
     t.add_argument("--encoder-ckpt", help="pretrained CAM++: export-encoder .npz or a wespeaker torch state dict")
     t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation")
     t.add_argument("--rir-dir", help="Kaldi dir of RIR wavs for reverberation")
@@ -333,19 +445,21 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", help="torch device (default: cuda; pass 'cpu' to run on the CPU)")
     t.set_defaults(fn=cmd_train)
 
-    i = sub.add_parser("infer", help="run overlap-voted TS-VAD inference → RTTM")
-    i.add_argument("--family", default="tsvad", help="model family; only 'tsvad' is ported")
+    i = sub.add_parser("infer", help="run chunked (EEND) or overlap-voted (TS-VAD) inference → RTTM")
+    i.add_argument("--family", choices=FAMILIES, help="model family (default: the --exp-dir run's, else tsvad)")
     i.add_argument("--config", help="with --params: TSVADConfig as JSON; default: the full-size TSVADConfig()")
     i.add_argument("--set", action="append", default=[],
                    help="key=value override of the TSVADConfig (--params) or of the run's TrainCliConfig (--exp-dir)")
     i.add_argument("--data-dir", required=True)
-    i.add_argument("--emb-store", required=True, help="target-speaker embedding npz (comma list merges)")
+    i.add_argument("--emb-store", help="tsvad: target-speaker embedding npz (comma list merges)")
     i.add_argument("--params", help=_PARAMS_HELP)
     i.add_argument("--exp-dir", help="a `train` run: restore its best (else latest) checkpoint")
     i.add_argument("--step", type=int, help="with --exp-dir: restore this step")
     i.add_argument("--avg-last", type=int, default=0, help="with --exp-dir: average the last K checkpoints")
     i.add_argument("--out", required=True)
     i.add_argument("--threshold", type=float, default=0.5)
+    i.add_argument("--attractor-threshold", type=float, default=0.5,
+                   help="eend_eda: keep attractors until the first existence probability below this")
     i.add_argument("--median", type=int, default=11)
     i.add_argument("--rs-len", type=float, help="window seconds (default: the run's rs_len, else 4)")
     i.add_argument("--infer-shift", type=float, default=1.0)

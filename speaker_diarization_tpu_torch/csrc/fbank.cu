@@ -1,18 +1,28 @@
-// K1: kaldi fbank front-end, one kernel per batch of waveforms.
+// K1 and K1': the spectral front-end kernel, one launch per batch of waveforms.
 //
-// Replaces speaker_diarization_tpu/kernels/fbank_pallas.py:_frontend_kernel
-// (entry fbank_pallas). Computes, per frame of `win` samples taken every
-// `shift` samples (snip_edges framing):
-//   scale -> DC removal -> preemphasis (first sample x0*(1-p)) -> hamming
-//   window -> |FFT_n_fft|^2 (bins 0..n_fft/2) -> kaldi mel -> ln(max(., eps))
+// Replaces speaker_diarization_tpu/kernels/fbank_pallas.py:_frontend_kernel,
+// which serves two entries, and so does this kernel:
+//
+// - K1, kaldi fbank (entry fbank_pallas; here sdt_fbank_f32). Per frame of
+//   `win` samples taken every `shift` samples (snip_edges framing):
+//     scale -> DC removal -> preemphasis (first sample x0*(1-p)) -> hamming
+//     window -> |FFT_n_fft|^2 (bins 0..n_fft/2) -> kaldi mel -> ln(max(., eps))
+// - K1', the EEND log-mel (entry logmel_pallas; here sdt_logmel_f32). Frame t
+//   is the n_fft samples from t*shift - n_fft/2 (centered framing; samples
+//   outside the audio read as zeros, so no padded copy is made):
+//     periodic hann of frame_size center-padded to n_fft -> |FFT_n_fft|^2
+//     -> slaney mel -> log10(max(., 1e-10))
+//   with no scaling, DC removal or preemphasis.
 // Mean-norm over time stays outside the kernel, as in the JAX package.
 //
 // What bounds it on the H100: at the TS-VAD shape (64 x 64000 samples, 16
 // kHz, 80 mels) the kernel must read 16.4 MB of audio and write 8.2 MB of
-// fbank, about 7.3 us at 3.35 TB/s. The arithmetic the function needs (a
-// real-input FFT per frame) is about 0.39 GFLOP of fp32, about 6 us on CUDA
-// cores, so it is bound by bytes. This kernel's complex radix-2 FFT of the
-// real frame does about twice that arithmetic (0.7 GFLOP).
+// fbank, about 7.3 us at 3.35 TB/s; at the EEND shape (32 x 400000 samples,
+// 8 kHz, 23 mels, 5000 frames each) 51.2 MB and 14.7 MB, about 20 us. The
+// arithmetic the function needs (a real-input FFT per frame) is 0.39 and
+// about 1.0 GFLOP of fp32, 6 and 15 us on CUDA cores, so both entries are
+// bound by bytes. This kernel's complex radix-2 FFT of the real frame does
+// about twice that arithmetic.
 // Design: the TPU kernel's DFT-as-matmul with bf16 hi/lo splits existed to
 // feed the MXU; here the spectrum is an fp32 radix-2 FFT in shared memory,
 // some 15x fewer operations than the dense DFT and fully fp32 (no TF32, which
@@ -20,7 +30,8 @@
 // consecutive frames of one waveform: it loads their overlapping samples
 // once into shared memory, then each warp transforms one frame with only
 // warp-level synchronisation. The mel projection uses each filter's
-// non-zero band only (at most a few dozen bins), held in shared memory.
+// non-zero band only (a few dozen bins at most; slaney filters widen with
+// frequency), held in shared memory.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -36,7 +47,7 @@ fbank_kernel(const float* __restrict__ x, float* __restrict__ out,
              const float* __restrict__ tw_im, const float* __restrict__ mel_w,
              const int* __restrict__ mel_start, int N, int T, int win, int shift,
              int n_fft, int log2n, int n_mels, int mel_len, float scale,
-             float preemph, int remove_dc) {
+             float preemph, int remove_dc, int pad, float floor_val, int log10_out) {
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kFramesPerBlock;
@@ -52,8 +63,14 @@ fbank_kernel(const float* __restrict__ x, float* __restrict__ out,
   int* s_mst = reinterpret_cast<int*>(s_mel + n_mels * mel_len);  // n_mels
   float* cbuf = reinterpret_cast<float*>(s_mst + n_mels);  // kFramesPerBlock * 2 * n_fft
 
-  const float* xb = x + (size_t)b * N + (size_t)t0 * shift;
-  for (int i = threadIdx.x; i < span; i += kThreads) raw[i] = xb[i] * scale;
+  // sample i of the block's span is audio sample t0*shift - pad + i; the
+  // kaldi entry (pad 0) never reads outside the audio, the centered one does
+  const float* xb = x + (size_t)b * N;
+  const long long base = (long long)t0 * shift - pad;
+  for (int i = threadIdx.x; i < span; i += kThreads) {
+    const long long idx = base + i;
+    raw[i] = (idx >= 0 && idx < N) ? xb[idx] * scale : 0.f;
+  }
   for (int i = threadIdx.x; i < win; i += kThreads) s_win[i] = window[i];
   for (int i = threadIdx.x; i < half; i += kThreads) {
     s_twr[i] = tw_re[i];
@@ -122,7 +139,8 @@ fbank_kernel(const float* __restrict__ x, float* __restrict__ out,
     const float* p = re + s_mst[m];
     float acc = 0.f;
     for (int q = 0; q < mel_len; ++q) acc += w[q] * p[q];
-    ob[m] = logf(fmaxf(acc, FLT_EPSILON));
+    acc = fmaxf(acc, floor_val);
+    ob[m] = log10_out ? log10f(acc) : logf(acc);
   }
 }
 
@@ -137,10 +155,11 @@ size_t sdt_fbank_smem_bytes(int win, int shift, int n_fft, int n_mels, int mel_l
                           (size_t)n_mels * mel_len + n_mels + (size_t)kFramesPerBlock * 2 * n_fft);
 }
 
-int sdt_fbank_f32(const void* x, void* out, const void* window, const void* tw_re,
+static int launch(const void* x, void* out, const void* window, const void* tw_re,
                   const void* tw_im, const void* mel_w, const void* mel_start, int B, int N,
                   int T, int win, int shift, int n_fft, int log2n, int n_mels, int mel_len,
-                  float scale, float preemph, int remove_dc, void* stream) {
+                  float scale, float preemph, int remove_dc, int pad, float floor_val,
+                  int log10_out, void* stream) {
   const size_t smem = sdt_fbank_smem_bytes(win, shift, n_fft, n_mels, mel_len);
   cudaError_t err = cudaFuncSetAttribute(fbank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -149,8 +168,26 @@ int sdt_fbank_f32(const void* x, void* out, const void* window, const void* tw_r
   fbank_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, (const float*)window, (const float*)tw_re,
       (const float*)tw_im, (const float*)mel_w, (const int*)mel_start, N, T, win, shift, n_fft,
-      log2n, n_mels, mel_len, scale, preemph, remove_dc);
+      log2n, n_mels, mel_len, scale, preemph, remove_dc, pad, floor_val, log10_out);
   return (int)cudaGetLastError();
+}
+
+// K1: kaldi fbank, snip_edges frames of `win` samples, natural log
+int sdt_fbank_f32(const void* x, void* out, const void* window, const void* tw_re,
+                  const void* tw_im, const void* mel_w, const void* mel_start, int B, int N,
+                  int T, int win, int shift, int n_fft, int log2n, int n_mels, int mel_len,
+                  float scale, float preemph, int remove_dc, void* stream) {
+  return launch(x, out, window, tw_re, tw_im, mel_w, mel_start, B, N, T, win, shift, n_fft, log2n,
+                n_mels, mel_len, scale, preemph, remove_dc, 0, FLT_EPSILON, 0, stream);
+}
+
+// K1': EEND log-mel, centered n_fft frames (window already center-padded to
+// n_fft), T = count_frames(N, shift) passed in, log10 with a 1e-10 floor
+int sdt_logmel_f32(const void* x, void* out, const void* window, const void* tw_re,
+                   const void* tw_im, const void* mel_w, const void* mel_start, int B, int N,
+                   int T, int shift, int n_fft, int log2n, int n_mels, int mel_len, void* stream) {
+  return launch(x, out, window, tw_re, tw_im, mel_w, mel_start, B, N, T, n_fft, shift, n_fft, log2n,
+                n_mels, mel_len, 1.f, 0.f, 0, n_fft / 2, 1e-10f, 1, stream);
 }
 
 }  // extern "C"

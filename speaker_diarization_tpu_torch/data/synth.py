@@ -1,10 +1,12 @@
-"""A small seeded synthetic TS-VAD corpus in Kaldi layout.
+"""A small seeded synthetic diarization corpus in Kaldi layout.
 
 `write_synthetic_corpus` writes wav.scp, reco2dur, an RTTM of random speaker
-turns (overlaps included), 16-bit wavs where each speaker is a distinct
-harmonic voice gated by its turns, and an embedding store with a few
-embedding rows per (recording, speaker). It exists so that the CLI and the
-smoke run can be driven end to end without any outside data.
+turns (overlaps included), the same turns as `segments` + `utt2spk` (one
+utterance per turn; the EEND dataset reads these), 16-bit wavs at `rate`
+(8 or 16 kHz) where each speaker is a distinct harmonic voice gated by its
+turns, and an embedding store with a few embedding rows per (recording,
+speaker) for TS-VAD. It exists so that the CLI and the smoke run can be
+driven end to end without any outside data.
 """
 
 from __future__ import annotations
@@ -66,7 +68,10 @@ def write_synthetic_corpus(
         write_wav(path, np.clip(audio, -1.0, 1.0).astype(np.float32), rate)
         wavs[rec], durs[rec] = path, seconds
         all_turns += turns
-    save_data_dir(out_dir, wavs, reco2dur=durs)
+    utts = [f"{tu.speaker}-{int(round(tu.start * 100)):07d}" for tu in all_turns]
+    segments = [dict(utt=u, rec=tu.rec, st=tu.start, et=tu.end) for u, tu in zip(utts, all_turns)]
+    utt2spk = {u: tu.speaker for u, tu in zip(utts, all_turns)}
+    save_data_dir(out_dir, wavs, segments=segments, utt2spk=utt2spk, reco2dur=durs)
     rttm = os.path.join(out_dir, "rttm")
     write_rttm(rttm, all_turns)
     emb_path = os.path.join(out_dir, "embeddings.npz")

@@ -1,9 +1,13 @@
-"""Overlapped-window TS-VAD inference with per-frame probability voting.
+"""Chunked inference over long recordings.
 
-Counterpart of speaker_diarization_tpu/infer/chunked.py
-(`tsvad_infer_dataset`); reference ts_vad2/model.py:957-968 (res_dict
-accumulation) + infer.py:86-94 (mean over overlap votes). `make_tsvad_predict`
-wraps a TSVADModel as the predictor it calls.
+Counterpart of speaker_diarization_tpu/infer/chunked.py:
+- `infer_recording` / `infer_dataset` (EEND family; reference
+  eend_eda/infer_eda.py:21-125): fixed-size chunks in the subsampled frame
+  domain, batched to one static shape, the tail chunk zero-padded and
+  masked, per-chunk probabilities concatenated over the recording;
+- `tsvad_infer_dataset`: overlapped TS-VAD windows with per-frame
+  probability voting (reference ts_vad2/model.py:957-968 + infer.py:86-94).
+`make_eend_predict` / `make_tsvad_predict` wrap a model as the predictor.
 """
 
 from __future__ import annotations
@@ -12,6 +16,79 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from ..data.kaldi_io import KaldiData
+from ..models.eend import FrontendConfig
+
+
+def _chunks(audio: np.ndarray, frontend: FrontendConfig, chunk_frames: int):
+    """(n_sub, chunk audio list, frame-mask list): the recording cut into
+    full-size chunks, the tail zero-padded and masked."""
+    chunk_samples = frontend.chunk_samples(chunk_frames)
+    n_sub = max(len(audio) // (frontend.subsampling * frontend.frame_shift), 1)
+    n_chunks = (n_sub + chunk_frames - 1) // chunk_frames
+    audio_p = np.pad(audio.astype(np.float32), (0, max(0, n_chunks * chunk_samples - len(audio))))
+    chunks, masks = [], []
+    for ci in range(n_chunks):
+        chunks.append(audio_p[ci * chunk_samples : (ci + 1) * chunk_samples])
+        m = np.zeros((chunk_frames,), np.float32)
+        m[: min(chunk_frames, n_sub - ci * chunk_frames)] = 1.0
+        masks.append(m)
+    return n_sub, chunks, masks
+
+
+def infer_recording(
+    predict_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
+    audio: np.ndarray,
+    frontend: FrontendConfig,
+    chunk_frames: int = 500,
+    batch_size: int = 8,
+) -> np.ndarray:
+    """Chunked inference over one recording's samples → (n_sub_frames, S).
+
+    predict_fn: (audio (B, chunk_samples), frame_mask (B, T)) → probs (B, T, S).
+    The last batch is zero-padded to `batch_size` (all-masked items), so
+    every call has one shape.
+    """
+    n_sub, chunks, masks = _chunks(audio, frontend, chunk_frames)
+    n_chunks = len(chunks)
+    outs = []
+    for i in range(0, n_chunks, batch_size):
+        b_audio, b_mask = np.stack(chunks[i : i + batch_size]), np.stack(masks[i : i + batch_size])
+        if len(b_audio) < batch_size:
+            pad = batch_size - len(b_audio)
+            b_audio = np.concatenate([b_audio, np.zeros((pad,) + b_audio.shape[1:], np.float32)])
+            b_mask = np.concatenate([b_mask, np.zeros((pad,) + b_mask.shape[1:], np.float32)])
+        outs.append(np.asarray(predict_fn(b_audio, b_mask))[: min(batch_size, n_chunks - i)])
+    probs = np.concatenate(outs, axis=0)  # (n_chunks, T, S)
+    return probs.reshape(-1, probs.shape[-1])[:n_sub]
+
+
+def infer_dataset(
+    predict_fn, data_dir: str, frontend: FrontendConfig, chunk_frames: int = 500, batch_size: int = 8
+) -> Dict[str, np.ndarray]:
+    """Chunked inference over every recording of a Kaldi data dir → {rec: (T_sub, S)}."""
+    kd = KaldiData(data_dir)
+    out = {}
+    for rec in sorted(kd.wavs):
+        audio, rate = kd.load_wav(rec)
+        if rate != frontend.sample_rate:
+            raise ValueError(f"{rec}: {rate} Hz audio, the model's front-end wants {frontend.sample_rate} Hz")
+        out[rec] = infer_recording(predict_fn, audio, frontend, chunk_frames, batch_size)
+    return out
+
+
+def make_eend_predict(model) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
+    """(audio, frame_mask) numpy → masked sigmoid probabilities numpy, on the model's device."""
+    dev = model.device
+
+    @torch.no_grad()
+    def predict(audio: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
+        m = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(dev)
+        return (torch.sigmoid(model(a, m)) * m[..., None]).cpu().numpy()
+
+    return predict
 
 
 def tsvad_infer_dataset(

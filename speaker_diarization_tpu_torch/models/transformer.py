@@ -1,8 +1,8 @@
-"""Post-norm transformer encoder layer, PyTorch.
+"""Post-norm transformer encoder, PyTorch.
 
 Counterpart of speaker_diarization_tpu/models/transformer.py
-(`sinusoidal_position_encoding`, `FeedForward`, `TransformerEncoderLayer`)
-with the flax layer's numerics:
+(`sinusoidal_position_encoding`, `make_padding_mask`, `FeedForward`,
+`TransformerEncoderLayer`, `TransformerEncoder`) with the flax numerics:
 
 - attention is per-head q/k/v projections, q scaled by 1/sqrt(head_dim),
   softmax in the compute dtype, written as plain matmuls (the JAX layer is
@@ -12,7 +12,10 @@ with the flax layer's numerics:
   in fp32 and cast back to the compute dtype;
 - in train mode dropout (rate `dropout`) sits where flax puts it: on the
   attention weights, after the FFN activation, and on both residual
-  branches; its masks come from an explicit torch.Generator.
+  branches; its masks come from an explicit torch.Generator;
+- a boolean attention mask (True = attend) fills masked scores with the
+  dtype's most negative finite value, as flax does, not -inf: a query row
+  with no valid key (a padded frame) gets a uniform softmax, never NaN.
 """
 
 from __future__ import annotations
@@ -57,14 +60,18 @@ class MultiHeadAttention(nn.Module):
         self.value = Linear(d_model, d_model)
         self.out = Linear(d_model, d_model)
 
-    def forward(self, x, generator=None):  # (B, T, D) self-attention, no mask
+    def forward(self, x, generator=None, mask=None):
+        """(B, T, D) self-attention; `mask` (B|1, 1, T, T) bool, True = attend."""
         B, T, D = x.shape
         H = self.n_heads
         q = self.query(x).view(B, T, H, D // H).transpose(1, 2)
         k = self.key(x).view(B, T, H, D // H).transpose(1, 2)
         v = self.value(x).view(B, T, H, D // H).transpose(1, 2)
         q = q / torch.tensor(math.sqrt(D // H), dtype=x.dtype)
-        w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)  # (B, H, T, T)
+        s = torch.matmul(q, k.transpose(-1, -2))  # (B, H, T, T)
+        if mask is not None:
+            s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
+        w = torch.softmax(s, dim=-1)
         w = drop(w, self.dropout, self.training, generator)
         o = torch.matmul(w, v).transpose(1, 2).reshape(B, T, D)
         return self.out(o)
@@ -92,7 +99,43 @@ class TransformerEncoderLayer(nn.Module):
         self.ln2 = LayerNorm(d_model)
         self.dropout = dropout
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, mask=None):
         p, on = self.dropout, self.training
-        x = self.ln1(x + drop(self.attn(x, generator), p, on, generator))
+        x = self.ln1(x + drop(self.attn(x, generator, mask), p, on, generator))
         return self.ln2(x + drop(self.ff(x, generator), p, on, generator))
+
+
+def make_padding_mask(frame_mask: torch.Tensor) -> torch.Tensor:
+    """(B, T) validity → (B, 1, T, T) attention mask (True = attend)."""
+    m = frame_mask.bool()
+    return m[:, None, :, None] & m[:, None, None, :]
+
+
+class TransformerEncoder(nn.Module):
+    """Input projection + LayerNorm (+ sinusoidal positions when `has_pos`)
+    + N post-norm self-attention layers; padded frames are masked out of
+    attention and zeroed at the output. The EEND family's trunk."""
+
+    def __init__(self, in_dim: int, d_model: int = 256, n_layers: int = 4, n_heads: int = 4, d_ff: int = 2048,
+                 dropout: float = 0.0, has_pos: bool = False, max_len: int = 8192):
+        super().__init__()
+        self.input_proj = Linear(in_dim, d_model)
+        self.input_norm = LayerNorm(d_model)
+        for i in range(n_layers):
+            self.add_module(f"layer_{i}", TransformerEncoderLayer(d_model, n_heads, d_ff, dropout))
+        self.n_layers = n_layers
+        self.has_pos = has_pos
+        self.max_len = max_len
+
+    def forward(self, x, frame_mask=None, generator=None):
+        """(B, T, in_dim) → (B, T, d_model); frame_mask (B, T) 1 = valid."""
+        mask = None if frame_mask is None else make_padding_mask(frame_mask)
+        h = self.input_norm(self.input_proj(x))
+        if self.has_pos:
+            pe = torch.from_numpy(sinusoidal_position_encoding(self.max_len, h.shape[-1])[: h.shape[1]])
+            h = h + pe.to(h.device, h.dtype)[None]
+        for i in range(self.n_layers):
+            h = getattr(self, f"layer_{i}")(h, generator, mask)
+        if frame_mask is not None:
+            h = h * frame_mask[..., None].to(h.dtype)
+        return h

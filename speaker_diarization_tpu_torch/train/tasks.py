@@ -1,11 +1,15 @@
 """Task losses plugged into the port's Trainer.
 
-Counterpart of speaker_diarization_tpu/train/tasks.py; the TS-VAD objective
-so far (`make_tsvad_loss`, tasks.py:241-271). The other families' losses
-come with their models.
+Counterpart of speaker_diarization_tpu/train/tasks.py: EEND PIT-BCE
+(`make_eend_loss`, tasks.py:20-37), EEND-EDA PIT + attractor existence
+(`make_eda_loss`, tasks.py:40-77) and TS-VAD per-speaker BCE
+(`make_tsvad_loss`, tasks.py:241-271). The other families' losses come
+with their models.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops import losses as L
 from ..ops import metrics as M
@@ -23,5 +27,43 @@ def make_tsvad_loss(n_label_frames: int, freeze_encoder: bool = False):
         loss = L.standard_bce(logits, batch["labels"])
         stats = M.diarization_error_stats(logits, batch["labels"])
         return loss, {"frame_der": M.der_from_stats(stats)}
+
+    return loss_fn
+
+
+def make_eend_loss():
+    """loss_fn for EENDModel: PIT-BCE with frame and speaker masks; aux
+    carries the frame DER under the best permutation."""
+
+    def loss_fn(model, batch, generator, train):
+        fm = batch["frame_mask"]
+        logits = model(batch["audio"], fm, generator=generator)
+        loss, labels_perm, _ = L.pit_loss(logits, batch["labels"], fm, batch.get("spk_mask"))
+        stats = M.diarization_error_stats(logits, labels_perm, fm)
+        return loss, {"frame_der": M.der_from_stats(stats)}
+
+    return loss_fn
+
+
+def make_eda_loss(attractor_weight: float = 1.0, shuffle_frames: bool = True):
+    """loss_fn for EendEdaModel: PIT-BCE + attractor existence BCE
+    (reference eend_eda/models.py:654-692 and 694). In training the EDA
+    encoder reads the frames in a random order per sample, valid frames
+    first (reference models.py:531-536): the argsort of uniform noise minus
+    the frame mask, the noise drawn from the Trainer's generator."""
+
+    def loss_fn(model, batch, generator, train):
+        fm = batch["frame_mask"]
+        order = None
+        if train and shuffle_frames:
+            noise = torch.rand(fm.shape, generator=generator, device=fm.device) - fm
+            order = torch.argsort(noise, dim=-1)
+        logits, exist_logits = model(batch["audio"], fm, order, generator=generator)
+        pit, labels_perm, _ = L.pit_loss(logits, batch["labels"], fm, batch.get("spk_mask"))
+        att = L.attractor_existence_loss(exist_logits, batch["spk_mask"])
+        stats = M.diarization_error_stats(logits, labels_perm, fm)
+        return pit + attractor_weight * att, {
+            "pit_loss": pit.detach(), "attractor_loss": att.detach(), "frame_der": M.der_from_stats(stats),
+        }
 
     return loss_fn

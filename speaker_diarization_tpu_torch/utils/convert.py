@@ -16,6 +16,11 @@ utils/torch_convert.py):
   LayerNorm scale/bias                   → weight/bias
   Mamba conv_kernel (d_conv, 1, d_inner) → conv.weight (d_inner, 1, d_conv)
   Mamba conv_bias, A_log, D              → conv.bias, A_log, D
+  LSTM ii|if|ig|io kernels (Din, D) each → input.weight (4D, Din), gate rows i, f, g, o
+  LSTM hi|hf|hg|ho kernels and biases    → hidden.weight (4D, D), hidden.bias (4D,)
+
+`eend_from_flax` / `eda_from_flax` map the JAX EENDModel / EendEdaModel
+variables, `eend_to_flax` maps either model's state dict back.
 
 `load_encoder_npz` reads the JAX `export-encoder` npz (models/spk_embed.py
 `save_encoder`: "/"-joined variable paths and a JSON `__cfg__`).
@@ -269,6 +274,25 @@ def _campplus_to_flax(mod: list, leaf: str, w: np.ndarray):
     return "params", (*path, leaf), w
 
 
+def _layer_to_flax(parts: list, w: np.ndarray, num_heads: int) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """Inverse of `_backend_from_flax` for one tensor of a transformer layer:
+    parts are the state-dict name from the layer on ([layer_i, ..., leaf])."""
+    layer, leaf = parts[0], parts[-1]
+    if parts[1] == "attn":  # layer_i.attn.<n>.<leaf>
+        att, n = (layer, "MultiHeadDotProductAttention_0", parts[2]), parts[2]
+        if leaf == "bias":
+            return (*att, "bias"), w if n == "out" else w.reshape(num_heads, -1)
+        if n == "out":  # (D, H·Dh) → (H, Dh, D)
+            return (*att, "kernel"), w.T.reshape(num_heads, -1, w.shape[0])
+        return (*att, "kernel"), w.T.reshape(w.shape[1], num_heads, -1)  # (H·Dh, D) → (D, H, Dh)
+    if parts[1] in ("ln1", "ln2"):
+        ln = "LayerNorm_0" if parts[1] == "ln1" else "LayerNorm_1"
+        return (layer, ln, "scale" if leaf == "weight" else "bias"), w
+    # feed-forward: layer_i.ff.dense{0,1}.<leaf>
+    dense = ("FeedForward_0", "Dense_" + parts[2][-1])
+    return (layer, *dense, "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w
+
+
 def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
     """This package's TSVADModel state_dict → JAX variables as numpy
     ({'params', 'batch_stats'}); the inverse of `tsvad_from_flax`, so
@@ -295,19 +319,81 @@ def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
         elif not parts[1].startswith("layer_"):  # a BiMamba backend
             path, w = _mamba_to_flax(parts[1:], w)
             _put(out["params"], (top, *path), w)
-        elif parts[2] == "attn":  # {single,multi}_backend.layer_i.attn.<n>.<leaf>
-            att, n = (top, parts[1], "MultiHeadDotProductAttention_0", parts[3]), parts[3]
-            if leaf == "bias":
-                _put(out["params"], (*att, "bias"), w if n == "out" else w.reshape(num_heads, -1))
-            elif n == "out":  # (D, H·Dh) → (H, Dh, D)
-                _put(out["params"], (*att, "kernel"), w.T.reshape(num_heads, -1, w.shape[0]))
-            else:  # (H·Dh, D) → (D, H, Dh)
-                _put(out["params"], (*att, "kernel"), w.T.reshape(w.shape[1], num_heads, -1))
-        elif parts[2] in ("ln1", "ln2"):
-            ln = "LayerNorm_0" if parts[2] == "ln1" else "LayerNorm_1"
-            _put(out["params"], (top, parts[1], ln, "scale" if leaf == "weight" else "bias"), w)
-        else:  # feed-forward: layer_i.ff.dense{0,1}.<leaf>
-            dense = ("FeedForward_0", "Dense_" + parts[3][-1])
-            _put(out["params"], (top, parts[1], *dense, "kernel" if leaf == "weight" else "bias"),
-                 w.T if leaf == "weight" else w)
+        else:  # {single,multi}_backend.layer_i.<...>
+            path, w = _layer_to_flax(parts[1:], w, num_heads)
+            _put(out["params"], (top, *path), w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# EEND family: TransformerEncoder, EENDModel head, EDA LSTMs
+# ---------------------------------------------------------------------------
+
+_GATES = ("i", "f", "g", "o")
+
+
+def _encoder_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax TransformerEncoder params → `<prefix>.` state-dict entries."""
+    sd = {
+        f"{prefix}.input_proj.weight": _t(p["input_proj"]["kernel"].T),
+        f"{prefix}.input_proj.bias": _t(p["input_proj"]["bias"]),
+        f"{prefix}.input_norm.weight": _t(p["input_norm"]["scale"]),
+        f"{prefix}.input_norm.bias": _t(p["input_norm"]["bias"]),
+    }
+    sd.update(_backend_from_flax({k: v for k, v in p.items() if k.startswith("layer_")}, prefix))
+    return sd
+
+
+def _lstm_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax OptimizedLSTMCell params (ii..io, hi..ho) → LSTM input/hidden Linears."""
+    return {
+        f"{prefix}.input.weight": _t(np.concatenate([p["i" + g]["kernel"] for g in _GATES], 1).T),
+        f"{prefix}.hidden.weight": _t(np.concatenate([p["h" + g]["kernel"] for g in _GATES], 1).T),
+        f"{prefix}.hidden.bias": _t(np.concatenate([p["h" + g]["bias"] for g in _GATES])),
+    }
+
+
+def eend_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX EENDModel variables ({'params'}, arrays) → EENDModel state_dict."""
+    p = variables["params"]
+    sd = _encoder_from_flax(p["encoder"], "encoder")
+    sd["head.weight"], sd["head.bias"] = _t(p["head"]["kernel"].T), _t(p["head"]["bias"])
+    return sd
+
+
+def _attractor_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax EncoderDecoderAttractor params → `<prefix>.` state-dict entries."""
+    sd = {**_lstm_from_flax(p["enc_lstm"], f"{prefix}.enc_lstm"), **_lstm_from_flax(p["dec_lstm"], f"{prefix}.dec_lstm")}
+    sd[f"{prefix}.exist_head.weight"] = _t(p["exist_head"]["kernel"].T)
+    sd[f"{prefix}.exist_head.bias"] = _t(p["exist_head"]["bias"])
+    return sd
+
+
+def eda_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX EendEdaModel variables ({'params'}, transformer encoder) → EendEdaModel state_dict."""
+    p = variables["params"]
+    return {**_encoder_from_flax(p["encoder"], "encoder"), **_attractor_from_flax(p["eda"], "eda")}
+
+
+def eend_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """EENDModel or EendEdaModel state_dict → JAX variables as numpy
+    ({'params'}); the inverse of `eend_from_flax` / `eda_from_flax`."""
+    params: dict = {}
+    for name, t in state_dict.items():
+        w = t.detach().cpu().float().numpy()
+        parts = name.split(".")
+        top, leaf = parts[0], parts[-1]
+        if top == "head" or parts[1] in ("input_proj", "exist_head"):
+            path = tuple(parts[:-1]) + ("kernel" if leaf == "weight" else "bias",)
+            _put(params, path, w.T if leaf == "weight" else w)
+        elif parts[1] == "input_norm":
+            _put(params, ("encoder", "input_norm", "scale" if leaf == "weight" else "bias"), w)
+        elif top == "encoder":  # encoder.layer_i.<...>
+            path, w = _layer_to_flax(parts[1:], w, num_heads)
+            _put(params, ("encoder", *path), w)
+        else:  # eda.{enc,dec}_lstm.{input,hidden}.<leaf>: split the four gates
+            kind = "i" if parts[2] == "input" else "h"
+            for g, wg in zip(_GATES, np.split(w, 4, axis=0)):
+                _put(params, ("eda", parts[1], kind + g, "kernel" if leaf == "weight" else "bias"),
+                     wg.T if leaf == "weight" else wg)
+    return {"params": params}

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -70,6 +71,11 @@ with torch.no_grad():
     out = m(torch.from_numpy((0.1 * rng.standard_normal((2, 16000))).astype(np.float32)),
             torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32)))
 assert out.shape == (2, 25, 4) and torch.isfinite(out).all(), out.shape
+from speaker_diarization_tpu_torch.models.eda import EendEdaModel
+e = EendEdaModel(d_model=16, n_layers=1, n_heads=2, d_ff=32, max_attractors=3, device="cpu", seed=1)
+with torch.no_grad():
+    lo, ex = e.infer(torch.from_numpy((0.1 * rng.standard_normal((2, 8000))).astype(np.float32)))
+assert lo.shape == (2, 10, 3) and ex.shape == (2, 3) and torch.isfinite(lo).all(), lo.shape
 assert not any(k.split(".")[0] in {sorted(FORBIDDEN)!r} and sys.modules[k] is not None for k in sys.modules)
 print("ok")
 """
@@ -113,3 +119,35 @@ def test_wrappers_run_their_twins_for_cpu_tensors():
     launches = fbank.fbank_cuda.launches
     assert fbank.fbank_cuda(torch.zeros(1, 800)).shape == (1, 3, 80)
     assert fbank.fbank_cuda.launches == launches
+
+
+def test_eend_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from speaker_diarization_tpu_torch.cli.main import main as port_cli
+    from speaker_diarization_tpu_torch.models.eda import EendEdaModel
+    from speaker_diarization_tpu_torch.models.eend import EENDModel
+
+    tiny = dict(d_model=16, n_layers=1, n_heads=2, d_ff=32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (EENDModel, EendEdaModel):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(**tiny)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(**tiny, device="cuda")
+        assert cls(**tiny, device="cpu").device == torch.device("cpu")
+    for fam in ("eend", "eend_eda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli(["infer", "--family", fam, "--data-dir", str(tmp_path), "--exp-dir", str(tmp_path), "--out", "o"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli(["train", "--family", fam, "--train-dir", str(tmp_path), "--exp-dir", str(tmp_path)])
+
+
+def test_logmel_wrapper_runs_its_twin_for_cpu_tensors():
+    from speaker_diarization_tpu_torch.kernels import fbank
+    from speaker_diarization_tpu_torch.ops import features as F
+
+    x = torch.from_numpy((0.1 * np.random.default_rng(0).standard_normal((2, 8123))).astype(np.float32))
+    launches = fbank.logmel_cuda.launches
+    T = F.count_frames(8123, 80)
+    got = fbank.logmel_cuda(x, T)
+    torch.testing.assert_close(got, F.logmel_frames_torch(x, T, 200, 80, 8000, 23, mean_norm=False), rtol=0, atol=0)
+    assert got.shape == (2, 102, 23) and fbank.logmel_cuda.launches == launches
