@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ and holds each one (K1 fbank, K1′
-EEND log-mel, K2 CAM++ dense block, K3a/K3b/K3c selective scan) against its
-plain PyTorch twin on the card at the shapes of the main paths. Then drives,
-each with the launch counts set to 0 just before and read just after:
+EEND log-mel, K2 CAM++ dense block, K3a/K3b/K3c selective scan, K4 CAM++
+FCM head) against its plain PyTorch twin on the card at the shapes of the
+main paths (K4 also against the cuDNN head it replaces). Then drives, each
+with the launch counts set to 0 just before and read just after:
 - the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
-  random weights): fbank 1, cam_block 3;
-- the same with BiMamba backends (d_state 64): fbank 1, cam_block 3,
+  random weights): fbank 1, cam_block 3, fcm 1;
+- the same with BiMamba backends (d_state 64): fbank 1, cam_block 3, fcm 1,
   selective_scan_fwd 8;
 - a Mamba TS-VAD train step at the hermetic recipe's settings: fbank 1,
   selective_scan_fwd_states 8, selective_scan_bwd 8; five steps on one
@@ -18,11 +19,21 @@ each with the launch counts set to 0 just before and read just after:
   widths, 8 kHz, batch 32 × one 500-frame chunk): logmel 1 each;
 - EEND and EDA train steps: logmel 1 per step; five steps on one fixed
   batch must lower the loss;
+- the hermetic recipe's speaker-encoder pretraining step (CAM++ 12/24/16
+  with the dense head, AAM over 32 speakers, bf16, batch 64 × 2 s at 8 kHz):
+  fbank 1 per step, five steps on one fixed batch must lower the loss; and
+  the embedding forward `extract-embeddings` runs (fp32, batch 32 × 6 s):
+  fbank 1;
 then the CLI: `infer --family tsvad` + `score` from flax-layout weights,
 `train --family tsvad` (Mamba, batch 64 × 4 s, bf16, with validation and
 checkpoints) followed by `infer --exp-dir`, and `train --family eend` /
 `eend_eda` followed by `infer --exp-dir --threshold-sweep` + `score`, on
-generated corpora. Each phase prints one line and raises on failure. The
+generated corpora; and the hermetic TS-VAD recipe at full width on a small
+corpus: `simulate` (a voice pool; train, valid and test mixtures of 3
+speakers at 8 kHz) → `train --family spk` → `export-encoder` →
+`prepare-targets` + `extract-embeddings` per split → `train --family tsvad
+--encoder-ckpt` → `infer --threshold-sweep` → `score`, each stage's output
+checked. Each phase prints one line and raises on failure. The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
@@ -72,6 +83,146 @@ def bound(work, flops_per_s):
     t_bytes = work["bytes"] / H100_BYTES_PER_S
     t_ops = max(work["flops"] / flops_per_s, work.get("exps", 0.0) / H100_EXP_PER_S)
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def cli(*args, timeout=600):
+    """Run one verb of the port's CLI; its stdout, or raise with its output."""
+    cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", *args]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"CLI {args[0]} failed ({res.returncode}):\n{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    return res.stdout
+
+
+def read_metrics(exp):
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ckpts = sorted(fn for fn in os.listdir(exp) if fn.startswith("step_"))
+    return [r for r in recs if r["kind"] == "train"], [r for r in recs if r["kind"] == "valid"], ckpts
+
+
+def recipe_chain():
+    """The hermetic TS-VAD recipe's stages 1-5 through the port's CLI at the
+    recipe's widths (8 kHz, 80 bins, CAM++ 12/24/16, batch 64), a few steps
+    each, on a small simulated corpus; each stage's output is checked."""
+    import numpy as np
+
+    from speaker_diarization_tpu_torch.data.rttm import read_rttm
+    from speaker_diarization_tpu_torch.data.wav import load_wav_maybe_piped
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as tmp:
+        # stage 1: a voice pool (8 synthetic speakers x 8 utterances, noises),
+        # then train/valid/test mixtures of 3 speakers drawn from it
+        t0 = time.perf_counter()
+        pool = os.path.join(tmp, "pool")
+        cli("simulate", "--out", pool, "--n-mixtures", "1", "--n-speakers", "3", "--seed", "0")
+        split_mix = {"train": 6, "valid": 8, "test": 3}
+        seconds = {}
+        for i, (split, n) in enumerate(split_mix.items()):
+            cli("simulate", "--out", os.path.join(tmp, split), "--source-dir", f"{pool}/src", "--noise-dir",
+                f"{pool}/noise", "--n-mixtures", str(n), "--n-speakers", "3", "--seed", str(10 * (i + 1)))
+            with open(os.path.join(tmp, split, "data", "reco2dur")) as f:
+                durs = [float(line.split()[1]) for line in f]
+            if len(durs) != n or not os.path.exists(os.path.join(tmp, split, "data", "rttm")):
+                raise AssertionError(f"simulate wrote {len(durs)} {split} mixtures, want {n}")
+            seconds[split] = round(sum(durs), 1)
+        with open(os.path.join(pool, "src", "utt2spk")) as f:
+            utt2spk = dict(line.split() for line in f)
+        phase("cli", f"simulate: voice pool of {len(utt2spk)} utterances from {len(set(utt2spk.values()))} speakers; "
+              f"mixtures of 3 speakers {split_mix}, seconds {seconds}, {time.perf_counter() - t0:.1f} s")
+
+        # stage 2: speaker-encoder pretraining, then stage 3's export
+        spk_exp, enc = os.path.join(tmp, "spk"), os.path.join(tmp, "encoder.npz")
+        sets = ["sample_rate=8000", "n_mels=80", "spk_dur=2.0", "aam_margin=0.3", "encoder_blocks=12,24,16",
+                "batch_size=64", "num_steps=4", "optimizer=adam", "schedule=poly", "learning_rate=1e-3",
+                "warmup_steps=200", "bf16=true", "log_every=2", "valid_every=100000"]
+        t0 = time.perf_counter()
+        cli("train", "--family", "spk", "--train-dir", f"{pool}/src", "--noise-dir", f"{pool}/noise", "--exp-dir",
+            spk_exp, *[a for kv in sets for a in ("--set", kv)])
+        trains, _, ckpts = read_metrics(spk_exp)
+        phase("cli", f"train --family spk (bf16, batch 64 x 2 s, 4 steps): {time.perf_counter() - t0:.1f} s; "
+              f"last log {trains[-1] if trains else None}; checkpoints {ckpts}")
+        if len(trains) != 2 or not all(math.isfinite(r["loss"]) for r in trains) or not ckpts:
+            raise AssertionError(f"CLI train --family spk did not log and checkpoint as asked: {trains}, {ckpts}")
+        cli("export-encoder", "--exp-dir", spk_exp, "--out", enc)
+        with np.load(enc) as z:
+            meta = json.loads(str(z["__cfg__"]))
+            dense = z["params/dense_linear/kernel"].shape
+            n_keys = len(z.files)
+            finite = all(np.isfinite(z[k]).all() for k in z.files if k != "__cfg__")
+            dense_bn = "batch_stats/dense_nonlinear/bn/mean" in z.files
+        phase("cli", f"export-encoder: {n_keys} arrays, config {meta}, dense kernel {dense}")
+        if (meta["encoder"], meta["feat_dim"], meta["emb_dim"], meta["encoder_blocks"]) != ("campplus", 80, 192,
+                                                                                             [12, 24, 16]) \
+                or dense != (1024, 192) or not dense_bn or not finite:
+            raise AssertionError(f"export-encoder wrote a bad npz: {meta}, dense {dense}")
+
+        # stage 3: oracle-RTTM targets and enrollment embeddings per split
+        t0 = time.perf_counter()
+        stores = {}
+        for split in split_mix:
+            data, targets = os.path.join(tmp, split, "data"), os.path.join(tmp, split, "targets")
+            stores[split] = os.path.join(tmp, split, "embs.npz")
+            cli("prepare-targets", "--rttm", f"{data}/rttm", "--data-dir", data, "--out", targets)
+            cli("extract-embeddings", "--data-dir", targets, "--out", stores[split], "--encoder-ckpt", enc,
+                "--rate", "8000", "--window", "6.0", "--hop", "1.0")
+            want_keys = {f"{t.rec}/{t.speaker}" for t in read_rttm(f"{data}/rttm")}
+            with np.load(stores[split]) as z:
+                shapes = {k: z[k].shape for k in z.files}
+                finite = all(np.isfinite(z[k]).all() for k in z.files)
+            # a speaker with under 1 s of overlap-free speech gets an empty
+            # matrix, as the JAX chunk_embeddings gives (min_window_s)
+            short = {k for k, v in shapes.items() if v == (0, 0)}
+            for k in short:
+                rec, spk = k.split("/")
+                audio, rate = load_wav_maybe_piped(os.path.join(targets, "target_audio", rec, f"{spk}.wav"))
+                if len(audio) >= rate:
+                    raise AssertionError(f"{split} store: {k} is empty but has {len(audio) / rate:.2f} s of target")
+            if set(shapes) != want_keys or not finite or any(len(v) != 2 or v[0] < 1 or v[1] != 192
+                                                             for k, v in shapes.items() if k not in short):
+                raise AssertionError(f"{split} store: keys {sorted(shapes)} vs the RTTM's {sorted(want_keys)}, "
+                                     f"shapes {shapes}, finite {finite}")
+            phase("cli", f"prepare-targets + extract-embeddings ({split}): {len(shapes)} (recording, speaker) "
+                  f"keys, windows per key {sorted(v[0] for v in shapes.values())}, dim 192, finite; "
+                  f"{len(short)} with under 1 s of target speech")
+        phase("cli", f"stage 3 took {time.perf_counter() - t0:.1f} s")
+
+        # stage 4: TS-VAD from the exported encoder
+        ts_exp = os.path.join(tmp, "tsvad")
+        sets = ["sample_rate=8000", "n_mels=80", "encoder_blocks=12,24,16", "rs_len=4.0", "segment_shift=2.0",
+                "batch_size=64", "num_steps=4", "optimizer=adam", "schedule=poly", "learning_rate=2e-4",
+                "warmup_steps=400", "bf16=true", "log_every=2", "valid_every=2"]
+        t0 = time.perf_counter()
+        cli("train", "--family", "tsvad", "--train-dir", os.path.join(tmp, "train", "data"), "--valid-dir",
+            os.path.join(tmp, "valid", "data"), "--exp-dir", ts_exp, "--emb-store",
+            f"{stores['train']},{stores['valid']}", "--encoder-ckpt", enc, "--noise-dir", f"{pool}/noise",
+            *[a for kv in sets for a in ("--set", kv)], timeout=900)
+        trains, valids, ckpts = read_metrics(ts_exp)
+        phase("cli", f"train --family tsvad --encoder-ckpt (bf16, batch 64 x 4 s, 4 steps): "
+              f"{time.perf_counter() - t0:.1f} s; last log {trains[-1] if trains else None}; valid losses "
+              f"{[round(r['loss'], 5) for r in valids]}; checkpoints {ckpts}")
+        if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in trains + valids) \
+                or not ckpts:
+            raise AssertionError(f"CLI train --family tsvad did not log, validate and checkpoint: {trains}, {valids}")
+
+        # stage 5: inference with the threshold sweep on the held-out mixtures, then the DER line
+        test = os.path.join(tmp, "test", "data")
+        hyp = os.path.join(tmp, "test_hyp.rttm")
+        t0 = time.perf_counter()
+        out = cli("infer", "--family", "tsvad", "--data-dir", test, "--exp-dir", ts_exp, "--emb-store",
+                  stores["test"], "--out", hyp, "--threshold-sweep", "--ref", f"{test}/rttm")
+        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", out)
+        n_rttm = sum(fn.startswith("test_hyp.rttm_") for fn in os.listdir(tmp))
+        phase("cli", f"infer --threshold-sweep (test): {n_rttm} RTTMs, best threshold "
+              f"{best.group(1) if best else None} DER {best.group(2) if best else None}% (4 steps of training), "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not best or n_rttm != 18:
+            raise AssertionError(f"CLI infer wrote {n_rttm} RTTMs:\n{out}")
+        line = cli("score", "--ref", f"{test}/rttm", "--sys", f"{hyp}_{float(best.group(1)):.2f}").strip()
+        line = line.splitlines()[-1] if line else ""
+        if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
+            raise AssertionError(f"CLI score printed no DER line: {line!r}")
+        phase("cli", f"score (hermetic recipe, test): DER/MS/FA/SC {line}")
 
 
 def main() -> int:
@@ -242,6 +393,48 @@ def main() -> int:
     k2["bound_by"] = bound(k2, H100_BF16_FLOPS)[1]
     records["cam_block"] = k2
 
+    # ---- K4: the FCM head kernel vs its plain twin on the flagship's CAM++
+    # head. bf16 at the main path's (64, 398): mean-abs 1e-3 and max-abs of
+    # four bf16 steps at the twin's largest magnitude (K2's bar); fp32 at four
+    # shapes (T = 57: one partial tile; 200: two tiles; 798: the 8 s window)
+    # within 2e-4 (the JAX fp32 bar, tests/test_fcm_pallas.py) of the twin and
+    # of `_fcm_infer`, the cuDNN head K4 replaces (TF32 off: resolve_device)
+    from speaker_diarization_tpu_torch.kernels import fcm as K4
+
+    B4, T4 = 64, 398
+    flat = fp_bf16["head.fcm"]
+    x = torch.randn((B4, T4, 80), generator=gen).to(dev, torch.bfloat16)
+    got, ref = K4.fcm_cuda(x, flat), K4.fcm_folded_torch(x, flat, torch.bfloat16)
+    torch.cuda.synchronize()
+    d = (got.float() - ref.float()).abs()
+    mean_err, max_err, top = d.mean().item(), d.max().item(), ref.float().abs().max().item()
+    max_bar = 4 * 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -30))) - 7)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: K4.fcm_cuda(x, flat), iters=10)
+        plain = cuda_ms(lambda: K4.fcm_folded_torch(x, flat, torch.bfloat16), iters=3, warmup=1)
+        cudnn = cuda_ms(lambda: CF._fcm_infer(x, camp.head, fp_bf16), iters=10)
+    bms, by = bound(K4.fcm_work(B4, T4, elem_bytes=2), H100_BF16_FLOPS)
+    phase("K4", f"fcm bf16 ({B4}, {T4}, 80) -> {tuple(got.shape)}: mean-abs {mean_err:.3e} (bar 1e-3), max-abs "
+          f"{max_err:.3e} (bar {max_bar:.3e}, max|twin| {top:.3f}); kernel {ms:.4f} ms, plain twin {plain:.4f} ms, "
+          f"cuDNN head (_fcm_infer) {cudnn:.4f} ms, bound {bms:.4f} ms ({by}, bf16 tensor-core peak)")
+    if not (mean_err <= 1e-3 and max_err <= max_bar and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"K4 bf16 disagrees with its twin: mean-abs {mean_err}, max-abs {max_err} (bar {max_bar})")
+    records["fcm"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, err=max_err)
+    flat32 = K4.prepare_fcm_params(camp.head, torch.float32)
+    fp_f32 = CF.fused_params(camp, torch.float32)
+    for Bx, Tx in ((16, 398), (3, 57), (2, 200), (4, 798)):
+        x32 = torch.randn((Bx, Tx, 80), generator=gen).to(dev)
+        with torch.no_grad():
+            got = K4.fcm_cuda(x32, flat32)
+            e_twin = (got - K4.fcm_folded_torch(x32, flat32, torch.float32)).abs().max().item()
+            e_cudnn = (got - CF._fcm_infer(x32, camp.head, fp_f32)).abs().max().item()
+        line = f"fcm fp32 ({Bx}, {Tx}, 80): max-abs {e_twin:.3e} vs the twin, {e_cudnn:.3e} vs _fcm_infer (bar 2e-4)"
+        if (Bx, Tx) == (16, 398):
+            line += f"; kernel {cuda_ms(lambda: K4.fcm_cuda(x32, flat32), iters=5):.4f} ms (fp32 on CUDA cores)"
+        phase("K4", line)
+        if not (e_twin <= 2e-4 and e_cudnn <= 2e-4 and torch.isfinite(got).all()):
+            raise AssertionError(f"K4 fp32 ({Bx}, {Tx}) disagrees: {e_twin} vs the twin, {e_cudnn} vs _fcm_infer")
+
     # ---- K3a/K3b/K3c: the selective-scan kernels vs their plain twins (fp32)
     # at the Mamba main path's two shapes, T = 100, d_inner 768, d_state 64:
     # the single backend's B·S = 256 rows and the multi backend's 64. Each
@@ -330,7 +523,7 @@ def main() -> int:
 
     wrappers = {"fbank": K1.fbank_cuda, "logmel": K1.logmel_cuda, "cam_block": K2.cam_dense_block_cuda,
                 "selective_scan_fwd": K3.selective_scan_fwd, "selective_scan_fwd_states": K3.selective_scan_fwd_states,
-                "selective_scan_bwd": K3.selective_scan_bwd}
+                "selective_scan_bwd": K3.selective_scan_bwd, "fcm": K4.fcm_cuda}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -352,24 +545,27 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = read_counts()
         phase("forward", f"TS-VAD bf16 (64, 64000) -> {tuple(logits.shape)}; launches {launches}")
-        if launches != want(fbank=1, cam_block=3):
-            raise AssertionError(f"main path launches {launches}, want fbank 1 and cam_block 3")
+        if launches != want(fbank=1, cam_block=3, fcm=1):
+            raise AssertionError(f"main path launches {launches}, want fbank 1, cam_block 3 and fcm 1")
         if tuple(logits.shape) != (64, 100, 4) or not torch.isfinite(logits).all():
             raise AssertionError("bad logits from the main path")
 
         def plain_forward(fn, *args):
             """fn(*args) with every kernel replaced by its plain twin."""
-            saved = (FE.kaldi_fbank_auto, FE.eend_frontend_auto, CF._dense_block_auto, MB.selective_scan_auto)
+            saved = (FE.kaldi_fbank_auto, FE.eend_frontend_auto, CF._dense_block_auto, CF._fcm_auto,
+                     MB.selective_scan_auto)
             FE.kaldi_fbank_auto = lambda w, sample_rate, num_mel_bins, mean_norm: FE.kaldi_fbank_torch(
                 w, sample_rate=sample_rate, num_mel_bins=num_mel_bins, mean_norm=mean_norm)
             FE.eend_frontend_auto = lambda a, n, fs, sh, sr, n_mels, c, ss, mn: FE.splice_subsample(
                 FE.logmel_frames_torch(a, FE.count_frames(n, sh), fs, sh, sr, n_mels, mn), c, ss)
             CF._dense_block_auto = lambda h, bp, dil, dtype: K2.cam_dense_block_infer(h, bp, dil, dtype=dtype)
+            CF._fcm_auto = lambda fb, head, fp, dtype: K4.fcm_folded_torch(fb.to(dtype), fp["head.fcm"], dtype)
             MB.selective_scan_auto = selective_scan_sequential
             try:
                 return fn(*args)
             finally:
-                FE.kaldi_fbank_auto, FE.eend_frontend_auto, CF._dense_block_auto, MB.selective_scan_auto = saved
+                (FE.kaldi_fbank_auto, FE.eend_frontend_auto, CF._dense_block_auto, CF._fcm_auto,
+                 MB.selective_scan_auto) = saved
 
         ref = plain_forward(model, audios[1], embss[1], n_label)
         mean_err = (logits - ref).abs().mean().item()
@@ -410,8 +606,9 @@ def main() -> int:
         torch.cuda.synchronize()
         mlaunches = read_counts()
         phase("mamba", f"TS-VAD-Mamba bf16 (64, 64000) -> {tuple(mlogits.shape)}; launches {mlaunches}")
-        if mlaunches != want(fbank=1, cam_block=3, selective_scan_fwd=8):
-            raise AssertionError(f"Mamba path launches {mlaunches}, want fbank 1, cam_block 3, selective_scan_fwd 8")
+        if mlaunches != want(fbank=1, cam_block=3, fcm=1, selective_scan_fwd=8):
+            raise AssertionError(f"Mamba path launches {mlaunches}, want fbank 1, cam_block 3, fcm 1, "
+                                 "selective_scan_fwd 8")
         if tuple(mlogits.shape) != (64, 100, 4) or not torch.isfinite(mlogits).all():
             raise AssertionError("bad logits from the Mamba path")
         ref = plain_forward(mmodel, audios[1], embss[1], n_label)
@@ -550,6 +747,57 @@ def main() -> int:
               f"reps {[round(r, 4) for r in tte['reps_s']]})")
         del emodel, fmodel, fixed, eb
 
+    # ---- the hermetic recipe's speaker encoder (K1): pretraining steps of the
+    # full-width classifier and the embedding forward of extract-embeddings
+    from speaker_diarization_tpu_torch.bench import (EMB_BATCH, EMB_WINDOW_S, SPK_BATCH, SPK_DUR_S, embed_forward,
+                                                     embed_throughput, make_spk_batches, spk_model,
+                                                     spk_recipe_trainer)
+    from speaker_diarization_tpu_torch.train.tasks import make_spk_loss
+
+    smodel, scfg = spk_model(dev, seed=5)
+    sb = make_spk_batches(SPK_BATCH, 3, seed=6, device=dev)
+    # five adam steps at a constant 1e-4 on one fixed batch: the loss must fall
+    fixed = Trainer(smodel, make_spk_loss(sample_rate=scfg.sample_rate),
+                    TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
+    slosses = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        reset_counts()
+        aux = fixed.train_step(sb[0])
+        torch.cuda.synchronize()
+        slaunches = read_counts()
+        slosses.append(aux["loss"].item())
+        if slaunches != want(fbank=1):
+            raise AssertionError(f"spk train step {i} launches {slaunches}, want fbank 1")
+    phase("spk", f"5 adam steps at 1e-4 on one batch (CAM++ 12/24/16 + AAM over {scfg.all_n_speakers} speakers, "
+          f"margin {scfg.aam_margin}, bf16, {SPK_BATCH} x {SPK_DUR_S} s at 8 kHz): losses "
+          f"{[round(v, 5) for v in slosses]}; launches per step {slaunches}")
+    if not (all(math.isfinite(v) for v in slosses) and slosses[-1] < slosses[0]):
+        raise AssertionError(f"the spk loss did not fall on a fixed batch: {slosses}")
+    st = train_throughput(spk_recipe_trainer(smodel), sb, iters=5, reps=3)
+    phase("throughput", f"spk train step (recipe: adam, poly, lr 1e-3, warmup 200, clip 5, bf16, batch {SPK_BATCH} x "
+          f"{SPK_DUR_S} s at 8 kHz): {st['ms_per_step']:.3f} ms/step (loss checksum {st['witness']:.6e}, "
+          f"reps {[round(r, 4) for r in st['reps_s']]})")
+    del smodel, fixed
+    encoder = spk_model(dev, seed=5, bf16=False)[0].speech_encoder
+    ea = [b["audio"] for b in make_spk_batches(EMB_BATCH, 3, seed=7, device=dev, seconds=EMB_WINDOW_S)]
+    efwd = embed_forward(encoder)
+    with torch.no_grad():
+        efwd(ea[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        emb = efwd(ea[1])
+        torch.cuda.synchronize()
+        elaunches = read_counts()
+    phase("spk", f"embedding forward fp32 {tuple(ea[1].shape)} -> {tuple(emb.shape)}; launches {elaunches}")
+    if elaunches != want(fbank=1) or tuple(emb.shape) != (EMB_BATCH, 192) or not torch.isfinite(emb).all():
+        raise AssertionError(f"bad embedding forward: launches {elaunches}, shape {tuple(emb.shape)}")
+    et = embed_throughput(encoder, ea, iters=10, reps=3)
+    phase("throughput", f"spk embedding forward (extract-embeddings: fp32, batch {EMB_BATCH} x {EMB_WINDOW_S} s at "
+          f"8 kHz): {et['ms_per_forward']:.3f} ms/forward, {et['windows_per_s']:.1f} windows/s (checksum "
+          f"{et['witness']:.6e}, reps {[round(r, 4) for r in et['reps_s']]})")
+    del encoder
+
     # ---- the entry point answers requests: CLI infer + score on a generated corpus
     from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
     from speaker_diarization_tpu_torch.utils.convert import save_flax_npz, tsvad_to_flax
@@ -687,6 +935,10 @@ def main() -> int:
                 raise RuntimeError(f"CLI score ({fam}) failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
             phase("cli", f"score ({fam}): DER/MS/FA/SC {line}")
 
+    # ---- the hermetic TS-VAD recipe on the port (recipes/hermetic_tsvad_full_stack.sh,
+    # every stage through the CLI at full width, on a small corpus)
+    recipe_chain()
+
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (
@@ -697,6 +949,8 @@ def main() -> int:
         ("selective_scan_fwd", scan_src, f"{scan_tpu}:50", mlaunches),
         ("selective_scan_fwd_states", scan_src, f"{scan_tpu}:148", tlaunches),
         ("selective_scan_bwd", scan_src, f"{scan_tpu}:190", tlaunches),
+        ("fcm", "speaker_diarization_tpu_torch/csrc/fcm.cu", "speaker_diarization_tpu/kernels/fcm_pallas.py:243",
+         launches),
     ):
         r = records[key]
         # no single PyTorch call computes any of these functions, so library_ms is null

@@ -17,12 +17,20 @@ seconds per second of the forward (`EendEdaModel.infer` for EDA), or with
 `--train` ms per step at the recipe's settings (adam, noam, lr 1.0, warmup
 800, clip 5).
 
+`--family spk` measures the speaker encoder of the hermetic TS-VAD recipe
+(recipes/hermetic_tsvad_full_stack.sh stages 2-3): with `--train`, ms per
+pretraining step at its settings (CAM++ 12/24/16 with the dense head, AAM
+margin 0.3 over 32 speakers, batch 64 × 2 s at 8 kHz, 80 bins, bf16, adam,
+poly, lr 1e-3, warmup 200, clip 5); without, windows per second of the fp32
+embedding forward `extract-embeddings` runs (fbank + CAM++ in eval, batch 32
+× 6 s windows at 8 kHz).
+
 Completion is proven by a data dependency: every forward's probability
 checksum (every step's loss) is chained into one device scalar that is read
 on the host after torch.cuda.synchronize(), so the clock cannot stop before
 every forward or step ran.
 
-    python -m speaker_diarization_tpu_torch.bench [--family tsvad|eend|eend_eda] [--backend mamba] \\
+    python -m speaker_diarization_tpu_torch.bench [--family tsvad|eend|eend_eda|spk] [--backend mamba] \\
         [--train] [--profile profile.txt]
 
 `--profile` also records a torch.profiler window of a few forwards (train
@@ -46,6 +54,10 @@ from .models.tsvad import TSVADConfig, TSVADModel
 
 BATCH, CHUNK_S = 64, 4.0  # the JAX bench's shape (reference run_ts_vad2.sh:198)
 EEND_BATCH = 32  # recipes/mini_librispeech_eend.sh:31
+# recipes/hermetic_tsvad_full_stack.sh: stage 2 (32 simulated speakers, 2 s
+# crops, batch 64 at 8 kHz) and stage 3 (6 s windows, in batches of 32)
+SPK_BATCH, SPK_DUR_S, SPK_RATE, SPK_CLASSES = 64, 2.0, 8000, 32
+EMB_BATCH, EMB_WINDOW_S = 32, 6.0
 
 
 def _pipelined(call: Callable[[int], torch.Tensor], device, iters: int, reps: int) -> Tuple[float, float, List[float]]:
@@ -197,15 +209,62 @@ def train_throughput(trainer, batches, iters: int = 5, reps: int = 3) -> Dict[st
     return dict(ms_per_step=1e3 * dt / iters, witness=witness, reps_s=dts)
 
 
+def spk_model(device, seed: int = 0, bf16: bool = True):
+    """The recipe's SpeakerClassifier (TrainCliConfig with its stage-2
+    settings), seeded random weights."""
+    from .cli.main import TrainCliConfig, build_model
+
+    cfg = TrainCliConfig(family="spk", bf16=bf16, seed=seed, sample_rate=SPK_RATE, n_mels=80,
+                         encoder_blocks="12,24,16", aam_margin=0.3, all_n_speakers=SPK_CLASSES,
+                         spk_dur=SPK_DUR_S, batch_size=SPK_BATCH)
+    return build_model(cfg, device), cfg
+
+
+def make_spk_batches(batch: int, n_bufs: int, seed: int, device, seconds: float = SPK_DUR_S) -> List[Dict]:
+    """Distinct seeded {audio (B, N) at 8 kHz, label (B,)} device batches."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SPK_RATE)
+    return [dict(audio=torch.from_numpy((0.1 * rng.standard_normal((batch, n))).astype(np.float32)).to(device),
+                 label=torch.from_numpy(rng.integers(0, SPK_CLASSES, batch)).to(device))
+            for _ in range(n_bufs)]
+
+
+def spk_recipe_trainer(model, seed: int = 0):
+    """A Trainer with the recipe's speaker-pretraining settings."""
+    from .train.tasks import make_spk_loss
+    from .train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(optimizer="adam", schedule="poly", learning_rate=1e-3, warmup_steps=200,
+                         total_steps=2000, grad_clip_norm=5.0, seed=seed)
+    return Trainer(model, make_spk_loss(sample_rate=SPK_RATE), tcfg)
+
+
+def embed_forward(encoder):
+    """audio (B, N) at 8 kHz → the embeddings `extract-embeddings` computes."""
+    from .models.spk_embed import embed_audio
+
+    return lambda a: embed_audio(encoder, a, SPK_RATE)
+
+
+@torch.no_grad()
+def embed_throughput(encoder, audios, iters: int = 10, reps: int = 3) -> Dict[str, float]:
+    """Median over `reps` of `iters` pipelined embedding forwards on distinct windows."""
+    fwd = embed_forward(encoder)
+    dt, witness, dts = _pipelined(lambda i: fwd(audios[i % len(audios)]).float().sum(), audios[0].device, iters, reps)
+    return dict(ms_per_forward=1e3 * dt / iters, windows_per_s=audios[0].shape[0] * iters / dt, witness=witness,
+                reps_s=dts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--family", choices=["tsvad", "eend", "eend_eda"], default="tsvad")
+    ap.add_argument("--family", choices=["tsvad", "eend", "eend_eda", "spk"], default="tsvad")
     ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add"], default="transformer",
                     help="tsvad: both backends")
     ap.add_argument("--train", action="store_true", help="time train steps instead of forwards")
     ap.add_argument("--profile", help="write a profiler table of a few forwards (train steps) to this file")
     args = ap.parse_args(argv)
-    meta = dict(device=torch.cuda.get_device_name(0), family=args.family, dtype="bf16")
+    meta = dict(device=torch.cuda.get_device_name(0), family=args.family,
+                dtype="fp32" if args.family == "spk" and not args.train else "bf16")
     per_call = "ms_per_step" if args.train else "ms_per_forward"
     if args.family == "tsvad":
         cfg = TSVADConfig(single_backend_type=args.backend, multi_backend_type=args.backend)
@@ -222,6 +281,22 @@ def main(argv=None) -> int:
 
             def forward():
                 return model(audios[0], embss[0], T)
+    elif args.family == "spk":
+        model, cfg = spk_model("cuda", bf16=args.train)
+        if args.train:
+            batches = make_spk_batches(SPK_BATCH, 4, 0, model.device)
+            meta.update(batch=SPK_BATCH, chunk_s=SPK_DUR_S, n_classes=SPK_CLASSES)
+            trainer = spk_recipe_trainer(model)
+            res = train_throughput(trainer, batches)
+        else:
+            encoder = model.speech_encoder
+            audios = [b["audio"] for b in make_spk_batches(EMB_BATCH, 4, 0, model.device, EMB_WINDOW_S)]
+            meta.update(batch=EMB_BATCH, chunk_s=EMB_WINDOW_S)
+            res = embed_throughput(encoder, audios)
+            fwd = embed_forward(encoder)
+
+            def forward():
+                return fwd(audios[0])
     else:
         model, cfg = eend_model(args.family, "cuda")
         batches = make_eend_batches(cfg, EEND_BATCH, 4, 0, model.device)

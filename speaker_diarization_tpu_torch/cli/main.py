@@ -1,5 +1,16 @@
-"""Command-line interface of the PyTorch port: training, inference, scoring.
+"""Command-line interface of the PyTorch port: corpora, training, inference, scoring.
 
+    python -m speaker_diarization_tpu_torch.cli simulate --out DIR \
+        [--source-dir D --noise-dir N --rir-dir R] [--n-mixtures 10] [--n-speakers 2] \
+        [--sil-scale 2] [--rate 8000] [--seed 777] [--with-rir --rir-method decay|image_source]
+    python -m speaker_diarization_tpu_torch.cli train --family spk --train-dir D \
+        [--valid-dir V] [--noise-dir N] --exp-dir X [--resume] [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli export-encoder --exp-dir X [--step S] --out enc.npz \
+        [--config train.json] [--set key=value ...]
+    python -m speaker_diarization_tpu_torch.cli prepare-targets --rttm R --data-dir D --out DIR \
+        [--label-rate 25] [--min-target-s 0]
+    python -m speaker_diarization_tpu_torch.cli extract-embeddings --data-dir DIR --out E.npz \
+        [--encoder-ckpt enc.npz|wespeaker.pt] [--rate 16000] [--window 6] [--hop 1] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli train --family eend|eend_eda \\
         --train-dir D[,D2] [--valid-dir V] --exp-dir X [--resume] \\
         [--set key=value ...] [--config train.json] [--device cpu]
@@ -17,9 +28,11 @@
         [--set key=value ...] [--rs-len 4] [--threshold-sweep --ref ref.rttm] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm
 
-Ported families: eend, eend_eda (transformer encoder) and tsvad. Flag
-names, `--set` keys and defaults follow the JAX package's CLI
-(`TrainCliConfig`, cli/main.py:33-110). `train` writes torch checkpoints
+Ported families: eend, eend_eda (transformer encoder), tsvad, and spk
+(speaker-encoder pretraining, exported by `export-encoder` in the JAX
+package's npz format for `extract-embeddings` and `train --family tsvad
+--encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
+package's CLI (`TrainCliConfig`, cli/main.py:33-110). `train` writes torch checkpoints
 and its config (train_config.json) into --exp-dir; `infer --exp-dir`
 rebuilds the model from that config (its family unless --family is given,
 then --set) and restores the best checkpoint by validation loss, else the
@@ -39,7 +52,8 @@ import sys
 
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
-FAMILIES = ("eend", "eend_eda", "tsvad")  # the ported ones
+FAMILIES = ("eend", "eend_eda", "tsvad", "spk")  # the ported ones
+INFER_FAMILIES = ("eend", "eend_eda", "tsvad")  # spk exports an encoder instead
 
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
@@ -53,7 +67,7 @@ class TrainCliConfig:
     """The EEND and TS-VAD fields of the JAX CLI's TrainCliConfig, same
     names and defaults (the family defaults to tsvad here)."""
 
-    family: str = "tsvad"  # eend | eend_eda | tsvad
+    family: str = "tsvad"  # eend | eend_eda | tsvad | spk
     # model
     n_speakers: int = 2  # tsvad: > 2 sets max_num_speaker, else 4
     max_attractors: int = 15  # eend_eda: attractors decoded at inference
@@ -84,6 +98,11 @@ class TrainCliConfig:
     encoder_blocks: str = ""  # "12,24,16" = reference CAM++
     freeze_encoder: bool = False
     enhancer: str = ""  # not ported: a non-empty value raises (ROADMAP item 10)
+    # spk (speaker-embedding pretraining)
+    all_n_speakers: int = 0  # classes; 0 = the training corpus's speakers
+    spk_dur: float = 2.0  # crop seconds per training utterance
+    aam_margin: float = 0.2
+    aam_scale: float = 32.0
     # optimization
     batch_size: int = 16
     num_steps: int = 10000
@@ -100,11 +119,24 @@ class TrainCliConfig:
     valid_every: int = 500
 
 
+def _blocks(cfg: TrainCliConfig) -> tuple:
+    """CAM++ depth: the `encoder_blocks` override, else the reference 12,24,16."""
+    return tuple(int(x) for x in cfg.encoder_blocks.split(",")) if cfg.encoder_blocks else (12, 24, 16)
+
+
+def spk_config(cfg: TrainCliConfig, n_classes: int):
+    """TrainCliConfig → SpkEmbedConfig, as the JAX CLI's _build_model does."""
+    from ..models.spk_embed import SpkEmbedConfig
+
+    return SpkEmbedConfig(n_classes=n_classes, encoder=cfg.speech_encoder_type, feat_dim=cfg.n_mels,
+                          margin=cfg.aam_margin, scale=cfg.aam_scale, encoder_blocks=_blocks(cfg))
+
+
 def tsvad_config(cfg: TrainCliConfig):
     """TrainCliConfig → TSVADConfig, as the JAX CLI's _build_model does."""
     from ..models.tsvad import TSVADConfig
 
-    blocks = tuple(int(x) for x in cfg.encoder_blocks.split(",")) if cfg.encoder_blocks else (12, 24, 16)
+    blocks = _blocks(cfg)
     return TSVADConfig(
         max_num_speaker=cfg.n_speakers if cfg.n_speakers > 2 else 4,
         feat_dim=cfg.n_mels if cfg.n_mels != 23 else 80,
@@ -183,6 +215,10 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
         from ..models.tsvad import TSVADModel
 
         return TSVADModel(tsvad_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "spk":
+        from ..models.spk_embed import SpeakerClassifier
+
+        return SpeakerClassifier(spk_config(cfg, cfg.all_n_speakers), dtype=dtype, device=device, seed=cfg.seed)
     common = dict(d_model=cfg.d_model, n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_ff=cfg.d_ff, dropout=cfg.dropout,
                   frontend=frontend_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
     if cfg.family == "eend":
@@ -252,6 +288,28 @@ def _eend_data(args, cfg: TrainCliConfig):
     )
 
 
+def _spk_data(args, cfg: TrainCliConfig):
+    """Speaker pretraining: (cfg with all_n_speakers from the corpus when 0,
+    loss_fn, train iterator factory, valid iterator factory, sizes)."""
+    from ..data.spk_dataset import SpeakerUttDataset, spk_batch_iterator
+    from ..train.tasks import make_spk_loss
+
+    train_ds = SpeakerUttDataset(args.train_dir, dur=cfg.spk_dur, rate=cfg.sample_rate, is_train=True,
+                                 seed=cfg.seed, noise_dir=args.noise_dir)
+    valid_ds = None
+    if args.valid_dir:
+        valid_ds = SpeakerUttDataset(args.valid_dir, dur=cfg.spk_dur, rate=cfg.sample_rate, is_train=False)
+    if cfg.all_n_speakers == 0:
+        cfg = dataclasses.replace(cfg, all_n_speakers=train_ds.n_speakers)
+    return (
+        cfg,
+        make_spk_loss(sample_rate=cfg.sample_rate),
+        lambda ep: spk_batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
+        (lambda: spk_batch_iterator(valid_ds, min(cfg.batch_size, len(valid_ds)), False)) if valid_ds else None,
+        (len(train_ds), len(valid_ds) if valid_ds else 0),
+    )
+
+
 def cmd_train(args) -> int:
     from ..train.checkpoints import CheckpointManager
     from ..train.loop import run_training
@@ -261,10 +319,14 @@ def cmd_train(args) -> int:
 
     cfg = _cli_config(args, load_json(TrainCliConfig, args.config) if args.config else TrainCliConfig())
     dev = resolve_device(args.device)
-    model = build_model(cfg, dev)
-    if cfg.family == "tsvad":
+    if cfg.family == "spk":  # the class count comes from the corpus
+        cfg, loss_fn, make_train, make_valid, sizes = _spk_data(args, cfg)
+        model = build_model(cfg, dev)
+    elif cfg.family == "tsvad":
+        model = build_model(cfg, dev)
         loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
     else:
+        model = build_model(cfg, dev)
         cfg, loss_fn, make_train, make_valid, sizes = _eend_data(args, cfg)
     tcfg = TrainerConfig(
         optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, schedule=cfg.schedule, d_model=cfg.d_model,
@@ -278,7 +340,7 @@ def cmd_train(args) -> int:
     if args.resume and mgr.latest_step() is not None:
         trainer.load_state_dict(mgr.restore())
         logging.info("resumed from step %d", trainer.step)
-    logging.info("training %s on %s (%s): %d train chunks, %d valid", cfg.family, dev, model.dtype, *sizes)
+    logging.info("training %s on %s (%s): %d train items, %d valid", cfg.family, dev, model.dtype, *sizes)
     run_training(
         trainer,
         make_train,
@@ -302,6 +364,8 @@ def _model_from_exp_dir(args, dev):
 
     saved = os.path.join(args.exp_dir, TRAIN_CONFIG)
     cfg = _cli_config(args, load_json(TrainCliConfig, saved) if os.path.exists(saved) else TrainCliConfig())
+    if cfg.family not in INFER_FAMILIES:
+        raise SystemExit(f"{args.exp_dir} is a {cfg.family} run: export its encoder with export-encoder")
     model = build_model(cfg, dev, bf16=args.bf16)
     mgr = CheckpointManager(args.exp_dir)
     step = args.step or mgr.best_step() or mgr.latest_step()
@@ -405,6 +469,125 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_simulate(args) -> int:
+    from ..data import simulate as S
+
+    if args.source_dir:
+        specs = S.random_mixture_specs(
+            args.source_dir, args.noise_dir, args.rir_dir, n_mixtures=args.n_mixtures,
+            n_speakers=args.n_speakers, sil_scale=args.sil_scale, seed=args.seed,
+        )
+        out = S.make_mixtures(specs, os.path.join(args.out, "data"), os.path.join(args.out, "wav"), args.rate)
+    else:
+        out = S.simulate_corpus(
+            args.out, n_mixtures=args.n_mixtures, n_speakers=args.n_speakers, rate=args.rate, seed=args.seed,
+            sil_scale=args.sil_scale, with_rir=args.with_rir, rir_method=args.rir_method,
+        )
+    print(out)
+    return 0
+
+
+def cmd_export_encoder(args) -> int:
+    """A spk `train` run's checkpoint → the encoder npz `extract-embeddings`
+    and `train --family tsvad --encoder-ckpt` read (JAX save_encoder format).
+    The config is the run's train_config.json, then --config, then --set."""
+    from ..models.spk_embed import save_encoder
+    from ..train.checkpoints import CheckpointManager
+    from ..utils.config import apply_overrides, load_json
+
+    saved = os.path.join(args.exp_dir, TRAIN_CONFIG)
+    cfg = load_json(TrainCliConfig, args.config or saved) if (args.config or os.path.exists(saved)) else TrainCliConfig()
+    if args.set:
+        cfg = apply_overrides(cfg, args.set)
+    mgr = CheckpointManager(args.exp_dir)
+    step = args.step or mgr.latest_step()
+    if step is None:
+        raise SystemExit(f"no checkpoints in {args.exp_dir}")
+    sd = mgr.restore(step)["model"]
+    pre = "speech_encoder."
+    enc = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    if "xvector.dense.linear.weight" not in enc:
+        raise SystemExit(f"{args.exp_dir} step {step} holds no CAM++ with an embedding head (not a spk run)")
+    save_encoder(args.out, spk_config(cfg, 1), enc)
+    logging.info("exported the encoder of step %d", step)
+    print(args.out)
+    return 0
+
+
+def cmd_prepare_targets(args) -> int:
+    from ..data.prep import prepare_targets_from_rttm
+
+    out = prepare_targets_from_rttm(args.rttm, args.data_dir, args.out, label_rate=args.label_rate,
+                                    min_target_s=args.min_target_s)
+    print(out)
+    return 0
+
+
+def _embedding_encoder(path, device):
+    """(CAM++ with its embedding head in eval mode on `device`, fbank bins):
+    an export-encoder npz, a wespeaker-named torch state dict, or, with no
+    path, seeded random weights (with a warning, as the JAX CLI does)."""
+    import torch
+
+    from ..models.campplus import CAMPPlus
+    from ..models.layers import init_weights_
+    from ..models.spk_embed import load_encoder
+
+    if path and path.endswith(".npz"):
+        camp, scfg = load_encoder(path, device)
+        return camp, scfg.feat_dim
+    camp = CAMPPlus()
+    if path:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        sd = sd.get("state_dict", sd.get("model", sd))
+        missing = sorted(set(camp.state_dict()) - set(sd))
+        if missing:
+            raise SystemExit(f"{path} lacks {len(missing)} CAM++ tensors, e.g. {missing[:3]}")
+        camp.load_state_dict({k: sd[k] for k in camp.state_dict()})
+    else:
+        init_weights_(camp, torch.Generator().manual_seed(0))
+        logging.warning("no --encoder-ckpt: using random encoder weights")
+    return camp.to(device).eval(), 80
+
+
+def cmd_extract_embeddings(args) -> int:
+    """Per-speaker target wavs → sliding-window CAM++ embeddings, one (n, 192)
+    matrix per (recording, speaker), as the JAX extract-embeddings. The fbank
+    runs on the device (the K1 kernel on CUDA); CAM++ on its module path."""
+    import numpy as np
+    import torch
+
+    from ..data.kaldi_io import KaldiData
+    from ..infer.embeddings import EmbeddingStore, chunk_embeddings
+    from ..models.spk_embed import embed_audio
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    camp, n_mels = _embedding_encoder(args.encoder_ckpt, dev)
+
+    @torch.no_grad()
+    def embed(b: np.ndarray) -> np.ndarray:
+        return embed_audio(camp, torch.from_numpy(b).to(dev), args.rate, n_mels).float().cpu().numpy()
+
+    kd = KaldiData(args.data_dir)
+    store = EmbeddingStore()
+    # target wavs laid out as rec/spk.wav (AliMeeting prep) or keyed rec-spk
+    for rec in sorted(kd.wavs):
+        audio, rate = kd.load_wav(rec)
+        if audio.ndim > 1:
+            audio = audio[:, 0]
+        if "/" in rec:
+            meeting, spk = rec.rsplit("/", 1)
+        elif "-" in rec:
+            meeting, spk = rec.rsplit("-", 1)
+        else:
+            meeting, spk = rec, rec
+        store.put(meeting, spk, chunk_embeddings(embed, audio, rate, window_s=args.window, hop_s=args.hop))
+    store.save(args.out)
+    print(args.out)
+    return 0
+
+
 def cmd_score(args) -> int:
     from ..score import score_der
 
@@ -428,11 +611,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    s = sub.add_parser("simulate", help="build a simulated multi-talker corpus")
+    s.add_argument("--out", required=True)
+    s.add_argument("--source-dir", help="Kaldi dir of single-speaker utts (default: synthetic voices)")
+    s.add_argument("--noise-dir")
+    s.add_argument("--rir-dir")
+    s.add_argument("--with-rir", action="store_true", help="synthesize and apply RIRs (no --rir-dir needed)")
+    s.add_argument("--rir-method", choices=["decay", "image_source"], default="decay",
+                   help="synthetic RIRs: sparse decays, or shoebox image-source rooms")
+    s.add_argument("--n-mixtures", type=int, default=10)
+    s.add_argument("--n-speakers", type=int, default=2)
+    s.add_argument("--sil-scale", type=float, default=2.0)
+    s.add_argument("--rate", type=int, default=8000)
+    s.add_argument("--seed", type=int, default=777)
+    s.set_defaults(fn=cmd_simulate)
+
     t = sub.add_parser("train", help="train a model with periodic validation and checkpoints")
     t.add_argument("--family", choices=FAMILIES, help="model family (default: the --config's, else tsvad)")
     t.add_argument("--config", help="TrainCliConfig as JSON (field → value)")
     t.add_argument("--set", action="append", default=[], help="TrainCliConfig override key=value")
-    t.add_argument("--train-dir", required=True, help="Kaldi data dir (EEND families: a comma list trains jointly)")
+    t.add_argument("--train-dir", required=True,
+                   help="Kaldi data dir (EEND families: a comma list trains jointly; spk: utt2spk required)")
     t.add_argument("--valid-dir")
     t.add_argument("--exp-dir", required=True)
     t.add_argument("--emb-store", help="tsvad: target-speaker embedding npz (comma list merges)")
@@ -446,7 +645,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="run chunked (EEND) or overlap-voted (TS-VAD) inference → RTTM")
-    i.add_argument("--family", choices=FAMILIES, help="model family (default: the --exp-dir run's, else tsvad)")
+    i.add_argument("--family", choices=INFER_FAMILIES, help="model family (default: the --exp-dir run's, else tsvad)")
     i.add_argument("--config", help="with --params: TSVADConfig as JSON; default: the full-size TSVADConfig()")
     i.add_argument("--set", action="append", default=[],
                    help="key=value override of the TSVADConfig (--params) or of the run's TrainCliConfig (--exp-dir)")
@@ -478,6 +677,32 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--regions", choices=["all", "single", "overlap"], default="all")
     sc.add_argument("--per-file", action="store_true")
     sc.set_defaults(fn=cmd_score)
+
+    pt = sub.add_parser("prepare-targets", help="system/oracle RTTM → overlap-free per-speaker target audio for TS-VAD")
+    pt.add_argument("--rttm", required=True, help="system (clustering) or oracle RTTM")
+    pt.add_argument("--data-dir", required=True, help="Kaldi dir of the mixture wavs")
+    pt.add_argument("--out", required=True)
+    pt.add_argument("--label-rate", type=int, default=25)
+    pt.add_argument("--min-target-s", type=float, default=0.0, help="drop speakers with less clean speech than this")
+    pt.set_defaults(fn=cmd_prepare_targets)
+
+    ee = sub.add_parser("export-encoder", help="export a trained spk encoder for extract-embeddings")
+    ee.add_argument("--exp-dir", required=True)
+    ee.add_argument("--step", type=int)
+    ee.add_argument("--out", required=True, help="output .npz path")
+    ee.add_argument("--config", help="TrainCliConfig as JSON (default: the run's train_config.json)")
+    ee.add_argument("--set", action="append", default=[])
+    ee.set_defaults(fn=cmd_export_encoder)
+
+    e = sub.add_parser("extract-embeddings", help="dump target-speaker embeddings to npz")
+    e.add_argument("--data-dir", required=True, help="Kaldi dir of per-speaker target wavs")
+    e.add_argument("--out", required=True)
+    e.add_argument("--encoder-ckpt", help="export-encoder .npz, or a wespeaker CAM++ torch state dict")
+    e.add_argument("--rate", type=int, default=16000)
+    e.add_argument("--window", type=float, default=6.0)
+    e.add_argument("--hop", type=float, default=1.0)
+    e.add_argument("--device", help="torch device (default: cuda; pass 'cpu' to run on the CPU)")
+    e.set_defaults(fn=cmd_extract_embeddings)
     return p
 
 

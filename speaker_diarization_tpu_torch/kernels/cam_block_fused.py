@@ -9,10 +9,13 @@ launch per dense block:
     (`prepare_block_params`), so the plain twin runs every layer's 1x1
     projection as one (B·T, c_max) x (c_max, 128) matmul; the CUDA kernel
     reads only each layer's live channels;
-  * the FCM head, the TDNN and the transits as plain convolutions/matmuls.
+  * the standard FCM head (80 fbank bins, a 32-channel conv1) in one K4
+    launch (kernels/fcm.py), any other head as plain convolutions;
+  * the TDNN and the transits as plain convolutions/matmuls.
 
-A CUDA tensor runs each dense block through the K2 kernel
-(kernels/cam_block.py); a CPU tensor through its plain twin.
+A CUDA tensor runs the FCM head through the K4 kernel and each dense block
+through the K2 kernel (kernels/cam_block.py); a CPU tensor through their
+plain twins.
 
 The folded and stacked parameters depend only on the weights, so they are
 prepared once per (weights, compute dtype) and cached on the model; the
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as Fn
 
 from .cam_block import cam_dense_block_cuda, cam_dense_block_infer  # noqa: F401  (twin re-exported)
+from .fcm import fcm_cuda, prepare_fcm_params
 
 
 @torch.no_grad()
@@ -116,6 +120,15 @@ def _fcm_infer(fbank, head, fp):
     return h.reshape(B, -1, T).transpose(1, 2)  # C-major, F-minor
 
 
+def _fcm_auto(fbank, head, fp, dtype):
+    """The FCM head: the K4 kernel for a CUDA tensor (its plain twin for a
+    CPU tensor) on the standard head (80 bins in, a (3, 3) conv1 from 1 to
+    32 channels); `_fcm_infer` on any other head, as the JAX _fcm_auto does."""
+    if fbank.shape[-1] == 80 and tuple(head.conv1.weight.shape) == (32, 1, 3, 3):
+        return fcm_cuda(fbank.to(dtype), fp["head.fcm"])
+    return _fcm_infer(fbank, head, fp)
+
+
 def _tdnn_infer(x, fp, stride=2, dilation=1, kernel=5):
     pad = (kernel - 1) // 2 * dilation
     h = Fn.conv1d(x.transpose(1, 2), fp["xvector.tdnn.linear"], stride=stride, padding=pad, dilation=dilation)
@@ -133,8 +146,9 @@ def _dense_block_auto(h, bp, dil, dtype):
 
 
 def fused_params(model, dtype: torch.dtype) -> Dict[str, object]:
-    """Folded BN (scale, bias) and dtype-cast weights by module name, plus
-    the stacked dense-block parameters; cached on the model."""
+    """Folded BN (scale, bias) and dtype-cast weights by module name, the
+    K4 head parameters ("head.fcm") and the stacked dense-block parameters;
+    cached on the model."""
     tensors = list(model.parameters()) + list(model.buffers())
     key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
     cached = getattr(model, "_fused_cache", None)
@@ -149,6 +163,7 @@ def fused_params(model, dtype: torch.dtype) -> Dict[str, object]:
                 fp[name] = _fold_bn(mod)
             elif name.startswith("head") and isinstance(mod, torch.nn.Conv2d):
                 fp[name] = mod.weight.to(dtype)
+        fp["head.fcm"] = prepare_fcm_params(model.head, dtype)
         fp["xvector.tdnn.linear"] = model.xvector.tdnn.linear.weight.to(dtype)
         channels = model.init_channels
         for i, num_layers in enumerate(model.block_layers):
@@ -165,13 +180,14 @@ def campplus_frames_fused(model, fbank: torch.Tensor) -> torch.Tensor:
     """Full CAM++ 'frames' forward with fused dense blocks.
 
     model: a CAMPPlus (eval weights); fbank (B, T, F) in the compute dtype.
-    Returns (B, ceil(T/2), 512) in the compute dtype. Module-free: FCM, TDNN
-    and transits as convolutions/matmuls, the three dense blocks through
-    `_dense_block_auto` (one K2 launch each on CUDA).
+    Returns (B, ceil(T/2), 512) in the compute dtype. Module-free: the FCM
+    head through `_fcm_auto` (one K4 launch on CUDA), TDNN and transits as
+    convolutions/matmuls, the three dense blocks through `_dense_block_auto`
+    (one K2 launch each on CUDA).
     """
     dt = fbank.dtype
     fp = fused_params(model, dt)
-    h = _fcm_infer(fbank, model.head, fp)
+    h = _fcm_auto(fbank, model.head, fp, dt)
     h = _tdnn_infer(h, fp)
     for i, dil in enumerate(model.block_dilations):
         h = _dense_block_auto(h, fp[f"block{i + 1}"], dil, dt)

@@ -1,7 +1,8 @@
 """Training losses of the ported families.
 
 Counterpart of speaker_diarization_tpu/ops/losses.py: `bce_with_logits`,
-`standard_bce` (TS-VAD, reference ts_vad2/model.py:1050), and the EEND
+`standard_bce` (TS-VAD, reference ts_vad2/model.py:1050), `l2_normalize`
+(speaker embeddings, gradient-safe at zero rows), and the EEND
 family's permutation-invariant BCE (`pit_loss` over a table of all C!
 permutations, reference eend/loss.py:20-67) and EDA attractor existence
 loss (reference eend_eda/models.py:654-692).
@@ -20,6 +21,16 @@ import torch
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Elementwise binary cross-entropy on pre-activations (stable form)."""
     return torch.clamp_min(logits, 0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
+    """Gradient-safe L2 normalization: x · rsqrt(sum(x²) + eps²).
+
+    `x / max(norm(x), eps)` has a NaN gradient at exactly-zero rows (the
+    norm's derivative at 0 is 0/0); this form is finite everywhere, and
+    zero rows do occur (zero-vector silence speakers in TS-VAD enrollment).
+    """
+    return x * torch.rsqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps * eps)
 
 
 def standard_bce(

@@ -2,15 +2,17 @@
 
 Counterpart of speaker_diarization_tpu/train/tasks.py: EEND PIT-BCE
 (`make_eend_loss`, tasks.py:20-37), EEND-EDA PIT + attractor existence
-(`make_eda_loss`, tasks.py:40-77) and TS-VAD per-speaker BCE
-(`make_tsvad_loss`, tasks.py:241-271). The other families' losses come
-with their models.
+(`make_eda_loss`, tasks.py:40-77), TS-VAD per-speaker BCE
+(`make_tsvad_loss`, tasks.py:241-271) and the speaker encoder's AAM-softmax
+cross-entropy (`make_spk_loss`, tasks.py:430-456). The other families'
+losses come with their models.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import features as F
 from ..ops import losses as L
 from ..ops import metrics as M
 
@@ -65,5 +67,22 @@ def make_eda_loss(attractor_weight: float = 1.0, shuffle_frames: bool = True):
         return pit + attractor_weight * att, {
             "pit_loss": pit.detach(), "attractor_loss": att.detach(), "frame_der": M.der_from_stats(stats),
         }
+
+    return loss_fn
+
+
+def make_spk_loss(sample_rate: int = 16000):
+    """loss_fn for SpeakerClassifier: kaldi fbank on the device (the K1
+    kernel for a CUDA batch) → AAM-softmax cross-entropy; the margin applies
+    in training only, as in JAX. Aux carries the top-1 accuracy."""
+
+    def loss_fn(model, batch, generator, train):
+        fbank = F.kaldi_fbank_auto(batch["audio"], sample_rate=sample_rate, num_mel_bins=model.cfg.feat_dim,
+                                   mean_norm=True)
+        labels = batch["label"].long()
+        logits = model(fbank, labels if train else None)
+        loss = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None]).mean()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, {"acc": acc.detach()}
 
     return loss_fn

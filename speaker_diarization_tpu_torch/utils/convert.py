@@ -21,6 +21,8 @@ utils/torch_convert.py):
 
 `eend_from_flax` / `eda_from_flax` map the JAX EENDModel / EendEdaModel
 variables, `eend_to_flax` maps either model's state dict back.
+`spk_from_flax` / `spk_to_flax` map the JAX SpeakerClassifier (CAM++ with its
+dense head, plus `aam_weight`), and `campplus_to_flax` a CAM++ state dict.
 
 `load_encoder_npz` reads the JAX `export-encoder` npz (models/spk_embed.py
 `save_encoder`: "/"-joined variable paths and a JSON `__cfg__`).
@@ -272,6 +274,37 @@ def _campplus_to_flax(mod: list, leaf: str, w: np.ndarray):
     if leaf == "weight":
         return "params", (*path, "kernel"), w.transpose(2, 1, 0) if w.ndim == 3 else w.transpose(2, 3, 1, 0)
     return "params", (*path, leaf), w
+
+
+def campplus_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """This package's CAMPPlus state_dict → JAX variables as numpy
+    ({'params', 'batch_stats'}); the inverse of `campplus_from_flax`."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        parts = name.split(".")
+        coll, path, w = _campplus_to_flax(parts[:-1], parts[-1], t.detach().cpu().float().numpy())
+        _put(out[coll], path, w)
+    return out
+
+
+def spk_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX SpeakerClassifier variables ({'params', 'batch_stats'}) → this
+    package's SpeakerClassifier state_dict."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = {f"speech_encoder.{k}": v for k, v in campplus_from_flax(p["speech_encoder"], s["speech_encoder"]).items()}
+    sd["aam_weight"] = _t(p["aam_weight"])
+    return sd
+
+
+def spk_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """SpeakerClassifier state_dict → JAX variables as numpy; the inverse of `spk_from_flax`."""
+    pre = "speech_encoder."
+    enc = campplus_to_flax({k[len(pre):]: v for k, v in state_dict.items() if k.startswith(pre)})
+    aam = np.ascontiguousarray(state_dict["aam_weight"].detach().cpu().float().numpy())
+    return {"params": {"speech_encoder": enc["params"], "aam_weight": aam},
+            "batch_stats": {"speech_encoder": enc["batch_stats"]}}
 
 
 def _layer_to_flax(parts: list, w: np.ndarray, num_heads: int) -> Tuple[Tuple[str, ...], np.ndarray]:

@@ -104,13 +104,13 @@ def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch):
     code = (
         "import speaker_diarization_tpu_torch.kernels.fbank, speaker_diarization_tpu_torch.kernels.cam_block, "
         "speaker_diarization_tpu_torch.kernels.cam_block_fused, speaker_diarization_tpu_torch.kernels.selective_scan, "
-        "speaker_diarization_tpu_torch.kernels._build; print('ok')"
+        "speaker_diarization_tpu_torch.kernels.fcm, speaker_diarization_tpu_torch.kernels._build; print('ok')"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
-    assert set(_build.sources()) == {"fbank", "cam_block", "selective_scan"}
+    assert set(_build.sources()) == {"fbank", "cam_block", "selective_scan", "fcm"}
 
 
 def test_wrappers_run_their_twins_for_cpu_tensors():
@@ -151,3 +151,35 @@ def test_logmel_wrapper_runs_its_twin_for_cpu_tensors():
     got = fbank.logmel_cuda(x, T)
     torch.testing.assert_close(got, F.logmel_frames_torch(x, T, 200, 80, 8000, 23, mean_norm=False), rtol=0, atol=0)
     assert got.shape == (2, 102, 23) and fbank.logmel_cuda.launches == launches
+
+
+def test_fcm_wrapper_runs_its_twin_for_cpu_tensors():
+    from speaker_diarization_tpu_torch.kernels import fcm
+    from speaker_diarization_tpu_torch.models.campplus import FCM
+    from speaker_diarization_tpu_torch.models.layers import init_weights_
+
+    head = FCM().eval()
+    init_weights_(head, torch.Generator().manual_seed(0))
+    flat = fcm.prepare_fcm_params(head, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 30, 80)).astype(np.float32))
+    launches = fcm.fcm_cuda.launches
+    got = fcm.fcm_cuda(x, flat)
+    torch.testing.assert_close(got, fcm.fcm_folded_torch(x, flat, torch.float32), rtol=0, atol=0)
+    assert got.shape == (2, 30, 320) and fcm.fcm_cuda.launches == launches
+
+
+def test_spk_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from speaker_diarization_tpu_torch.cli.main import main as port_cli
+    from speaker_diarization_tpu_torch.models.spk_embed import SpeakerClassifier, SpkEmbedConfig
+
+    cfg = SpkEmbedConfig(n_classes=3, encoder_blocks=(1, 1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpeakerClassifier(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeakerClassifier(cfg, device="cuda")
+    assert SpeakerClassifier(cfg, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_cli(["train", "--family", "spk", "--train-dir", str(tmp_path), "--exp-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_cli(["extract-embeddings", "--data-dir", str(tmp_path), "--out", str(tmp_path / "e.npz")])
