@@ -6,7 +6,11 @@
 Builds the port's CUDA kernels from csrc/ and holds each one (K1 fbank, K1′
 EEND log-mel, K2 CAM++ dense block, K3a/K3b/K3c selective scan, K4 CAM++
 FCM head) against its plain PyTorch twin on the card at the shapes of the
-main paths (K4 also against the cuDNN head it replaces). Then drives, each
+main paths (K4 also against the cuDNN head it replaces; K2 run twice must
+give the same bits; K2 also at the input widths of shallower encoders, and
+bf16 TS-VAD forwards with them). Where build/prev/{cam_block,fcm}.cu hold K2 and K4 as
+of commit 8cf507d (copied there from git for a call; build/ is not
+committed), they are built and timed beside the current ones. Then drives, each
 with the launch counts set to 0 just before and read just after:
 - the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
   random weights): fbank 1, cam_block 3, fcm 1;
@@ -39,6 +43,7 @@ and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -55,6 +60,14 @@ H100_BF16_FLOPS = 989e12  # dense tensor cores
 # exponentials on the special-function units: 16 per SM per clock (sm_90),
 # 132 SMs at the 1.98 GHz boost clock of the H100 SXM
 H100_EXP_PER_S = 16 * 132 * 1.98e9
+# Tight mean-abs bars on the bf16 kernels' outputs against their twins, set
+# between sound kernels and a misplaced rounding point (PERF.md, findings).
+# K2's grown channels: sound <= 6.3e-5; a K2 whose BN of h rounded once (one
+# fma) instead of after the product and after the sum read 4.8e-4 to 5.7e-4.
+# K4: sound <= 1.4e-4; a planted fault in its twin (conv B's output added to
+# the residual before it is rounded to bf16) reads ~9.2e-4, checked each run.
+K2_ROUNDING_BAR = 2e-4
+K4_ROUNDING_BAR = 3e-4
 
 
 def phase(name, msg):
@@ -83,6 +96,80 @@ def bound(work, flops_per_s):
     t_bytes = work["bytes"] / H100_BYTES_PER_S
     t_ops = max(work["flops"] / flops_per_s, work.get("exps", 0.0) / H100_EXP_PER_S)
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+PREV_DIR = os.path.join(REPO, "build", "prev")
+# the git blob ids of K2's and K4's sources at commit 8cf507d (the CUDA-core
+# K2 and the unfused K4), the only versions whose C interface prev_kernels calls
+PREV_BLOBS = {"cam_block": "3fbddb1eed560d4fc65ad5f56cc88d4a9a86c74b", "fcm": "36001de2ffa4fd7ef211bbc660ab412357952334"}
+
+
+def prev_kernels():
+    """K2 and K4 as of commit 8cf507d, for timing beside the current ones on
+    the same card: built from build/prev/{cam_block,fcm}.cu where a call put
+    them there (`git show 8cf507d:speaker_diarization_tpu_torch/csrc/fcm.cu >
+    build/prev/fcm.cu`, and cam_block.cu; build/ is not committed), else
+    None. Any other source raises: the ctypes signatures below are that
+    commit's. Returns {"cam_block": fn, "fcm": fn}, each fn taking the
+    current wrapper's arguments (bf16 only)."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from speaker_diarization_tpu_torch.kernels import _build
+    from speaker_diarization_tpu_torch.kernels import cam_block as K2
+    from speaker_diarization_tpu_torch.kernels import fcm as K4
+
+    srcs = {n: os.path.join(PREV_DIR, n + ".cu") for n in ("cam_block", "fcm")}
+    if not all(os.path.exists(p) for p in srcs.values()):
+        return None
+    for n, p in srcs.items():
+        with open(p, "rb") as f:
+            data = f.read()
+        if hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest() != PREV_BLOBS[n]:
+            raise RuntimeError(f"build/prev/{n}.cu is not {n}.cu of commit 8cf507d, whose C interface the timing calls")
+    nvcc = _build.nvcc_path()
+    procs = {n: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", p[:-3] + ".so", p], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT) for n, p in srcs.items()}
+    libs = {}
+    for n, proc in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for build/prev/{n}.cu:\n{log}")
+        libs[n] = lib = ctypes.CDLL(srcs[n][:-3] + ".so")
+        lib.sdt_cuda_error_string.restype = ctypes.c_char_p
+        lib.sdt_cuda_error_string.argtypes = [ctypes.c_int]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    libs["cam_block"].sdt_cam_block_bf16.restype = I
+    libs["cam_block"].sdt_cam_block_bf16.argtypes = [P] * 14 + [I] * 7 + [P]
+    libs["fcm"].sdt_fcm_scratch_elems.restype = ctypes.c_size_t
+    libs["fcm"].sdt_fcm_scratch_elems.argtypes = [I, I]
+    libs["fcm"].sdt_fcm_bf16.restype = I
+    libs["fcm"].sdt_fcm_bf16.argtypes = [P, P, ctypes.POINTER(P), ctypes.POINTER(P), P, I, I, P]
+
+    def cam_block(x, bp, dil, seg_len=100):  # u in shared memory: T <= 656
+        B, T, c0 = x.shape
+        L, c_max, _ = bp["W1"].shape
+        out = torch.empty((B, T, c_max), dtype=x.dtype, device=x.device)
+        code = libs["cam_block"].sdt_cam_block_bf16(
+            x.data_ptr(), out.data_ptr(), *[bp[k].data_ptr() for k in K2._ARGS], None, None, B, T, c0, c_max, L,
+            dil, seg_len, torch.cuda.current_stream().cuda_stream)
+        _build.check(libs["cam_block"], code, "previous cam_block")
+        return out
+
+    def fcm(x, flat):
+        B, T, _ = x.shape
+        out = torch.empty((B, T, K4.OUT_DIM), dtype=x.dtype, device=x.device)
+        scratch = torch.empty(libs["fcm"].sdt_fcm_scratch_elems(B, T), dtype=x.dtype, device=x.device)
+        w_ptrs = (ctypes.c_void_p * K4.N_UNITS)(*[t.data_ptr() for t in flat[0::2]])
+        sb_ptrs = (ctypes.c_void_p * K4.N_UNITS)(*[t.data_ptr() for t in flat[1::2]])
+        code = libs["fcm"].sdt_fcm_bf16(x.data_ptr(), out.data_ptr(), w_ptrs, sb_ptrs, scratch.data_ptr(), B, T,
+                                        torch.cuda.current_stream().cuda_stream)
+        _build.check(libs["fcm"], code, "previous fcm")
+        return out
+
+    return {"cam_block": cam_block, "fcm": fcm}
 
 
 def cli(*args, timeout=600):
@@ -259,9 +346,12 @@ def main() -> int:
     phase("build", f"{json.dumps({k: round(v, 2) for k, v in built.items()})} wall {time.perf_counter() - t0:.2f} s "
           f"(cached: {sorted(set(_build.sources()) - set(built))})")
     for src in _build.sources():
+        fn = "?"  # the kernel (mangled name) the next lines describe
         for line in _build.build_log(src).splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+            fn = m.group(1) if m else fn
             if re.search(r"registers|spill", line):
-                phase("ptxas", f"{src}: {line.strip()}")
+                phase("ptxas", f"{src} {fn}: {line.split(':', 1)[-1].strip()}")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     records = {}
@@ -310,7 +400,11 @@ def main() -> int:
             raise AssertionError(f"K1′ disagrees with its twin at {sr} Hz {tuple(shape)}: max-abs {err}")
     records["logmel"] = k1p
 
-    # ---- K2: dense-block kernel vs its plain twin, the three flagship blocks
+    # ---- K2: dense-block kernel vs its plain twin, the three flagship blocks.
+    # bf16 at the main shape: the tensor-core kernel with T split over a
+    # cluster (launch_plan: 2 CTAs per item, 128 CTAs); two runs must give
+    # the same bits (the cluster's sums are added in a fixed order); the
+    # previous version (build/prev, where a call put it) is timed beside it
     cfg = TSVADConfig()
     model = TSVADModel(cfg, dtype="bf16", device=dev, seed=0)
     camp = model.speech_encoder
@@ -319,15 +413,23 @@ def main() -> int:
     for i, (L, dil) in enumerate(zip(camp.block_layers, camp.block_dilations)):
         blocks.append((i + 1, c0, L, dil))
         c0 = (c0 + 32 * L) // 2
-    k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0)
+    prev = prev_kernels()
+    phase("prev", "the previous K2 and K4 built from build/prev for timing" if prev else
+          "no build/prev sources: the previous kernels are not timed")
+    k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0, prev_ms=0.0)
     B, T = 64, 199
-    if K2.u_in_global(T, torch.bfloat16):
-        raise AssertionError(f"K2 at the main path's T={T} should keep u in shared memory")
+    k2lib = K2._lib()
     for idx, c0, L, dil in blocks:
         bp = fp_bf16[f"block{idx}"]
+        plan = K2.launch_plan(B, T, dil, c0 + 32 * L)
+        c_smem = k2lib.sdt_cam_block_tc_smem_bytes(c0 + 32 * L, plan.u_rows, plan.nls)
+        if plan.u_global or B * plan.cl < 128 or c_smem != plan.smem:
+            raise AssertionError(f"K2 plan at the main path's (B, T) = ({B}, {T}): {plan}, kernel smem {c_smem}")
         x = torch.randn((B, T, c0), generator=gen).to(dev, torch.bfloat16)
         got = K2.cam_dense_block_cuda(x, bp, dil)
+        again = K2.cam_dense_block_cuda(x, bp, dil)
         ref = K2.cam_dense_block_infer(x, bp, dil, dtype=torch.bfloat16)
+        same = torch.equal(got, again)
         d = (got.float() - ref.float()).abs()
         mean_err, max_err = d.mean().item(), d.max().item()
         # the grown channels only (the first c0 are copied): mean-abs and a
@@ -337,18 +439,23 @@ def main() -> int:
         max_bar = 4 * 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -30))) - 7)
         grown_mean = grown.mean().item()
         ms = cuda_ms(lambda: K2.cam_dense_block_cuda(x, bp, dil), iters=10)
+        prev_ms = cuda_ms(lambda: prev["cam_block"](x, bp, dil), iters=10) if prev else None
         plain = cuda_ms(lambda: K2.cam_dense_block_infer(x, bp, dil, dtype=torch.bfloat16), iters=5)
         work = K2.cam_block_work(B, T, c0, L, elem_bytes=2)
         bms, _ = bound(work, H100_BF16_FLOPS)
-        phase("K2", f"block{idx} bf16 B={B} T={T} c0={c0} L={L} d={dil}: mean-abs {mean_err:.3e} (bar 5e-2), "
-              f"max-abs {max_err:.3e}; grown channels mean-abs {grown_mean:.3e} (bar 1e-3), max-abs "
-              f"{grown.max().item():.3e} (bar {max_bar:.3e}, max|twin| {top:.3f}); "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms")
-        if not (mean_err <= 5e-2 and grown_mean <= 1e-3 and grown.max().item() <= max_bar
-                and torch.isfinite(got.float()).all()):
+        phase("K2", f"block{idx} bf16 B={B} T={T} c0={c0} L={L} d={dil} ({B * plan.cl} CTAs, clusters of "
+              f"{plan.cl}): mean-abs {mean_err:.3e} (bar 5e-2), max-abs {max_err:.3e}; grown channels mean-abs "
+              f"{grown_mean:.3e} (bar 1e-3, rounding bar {K2_ROUNDING_BAR:.0e}), max-abs {grown.max().item():.3e} "
+              f"(bar {max_bar:.3e}, max|twin| {top:.3f}); two runs bitwise equal: {same}; kernel {ms:.4f} ms, "
+              f"previous kernel {'not measured' if prev_ms is None else f'{prev_ms:.4f} ms'}, plain {plain:.4f} ms, "
+              f"bound {bms:.4f} ms")
+        if not (mean_err <= 5e-2 and grown_mean <= min(1e-3, K2_ROUNDING_BAR) and grown.max().item() <= max_bar
+                and same and torch.isfinite(got.float()).all()):
             raise AssertionError(f"K2 block{idx} bf16 disagrees with its twin: mean-abs {mean_err}, "
-                                 f"grown mean-abs {grown_mean}, grown max-abs {grown.max().item()} (bar {max_bar})")
+                                 f"grown mean-abs {grown_mean}, grown max-abs {grown.max().item()} (bar {max_bar}), "
+                                 f"bitwise equal runs {same}")
         k2["ms"] += ms
+        k2["prev_ms"] = None if prev_ms is None or k2["prev_ms"] is None else k2["prev_ms"] + prev_ms
         k2["plain_ms"] += plain
         k2["bound_ms"] += bms
         k2["err"] = max(k2["err"], max_err)
@@ -361,65 +468,155 @@ def main() -> int:
             phase("K2", f"block{idx} fp32 B=16 T={T32}: max-abs {err:.3e} (bar 2e-4)")
             if not err <= 2e-4:
                 raise AssertionError(f"K2 block{idx} fp32 T={T32} disagrees with its twin: max-abs {err}")
-    # any B and T: a short window (one partial segment) and a 3-segment one
-    _, c0, L, dil = blocks[0]
-    fp32 = CF.prepare_block_params(camp.xvector.block1, c0, c0 + 32 * L, torch.float32)
-    for Bx, Tx in ((3, 57), (5, 250)):
+    if k2["prev_ms"] is not None:
+        phase("K2", f"three blocks at (64, 199): kernel {k2['ms']:.4f} ms, previous kernel "
+              f"{k2['prev_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms")
+
+    def bf16_grown_ok(got, ref, c0):
+        """bf16 bars on the grown channels: mean-abs 1e-3 and the rounding
+        bar, max-abs 4 bf16 steps."""
+        d = (got.float() - ref.float()).abs()[..., c0:]
+        top = ref[..., c0:].float().abs().max().item()
+        bar = 4 * 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -30))) - 7)
+        ok = d.mean().item() <= min(1e-3, K2_ROUNDING_BAR) and d.max().item() <= bar \
+            and bool(torch.isfinite(got.float()).all())
+        return ok, (f"grown max-abs {d.max().item():.3e} (bar {bar:.3e}), mean-abs {d.mean().item():.3e} "
+                    f"(bar 1e-3, rounding bar {K2_ROUNDING_BAR:.0e})")
+
+    # any B and T: a short window (one partial segment), a 3-segment one and
+    # one shorter than the dilation's halo, fp32 and bf16 (clusters of 3, 8
+    # and 1, CTA edges inside segments)
+    for idx, Bx, Tx in ((1, 3, 57), (1, 5, 250), (2, 2, 1)):
+        _, c0, L, dil = blocks[idx - 1]
+        fp32 = CF.prepare_block_params(getattr(camp.xvector, f"block{idx}"), c0, c0 + 32 * L, torch.float32)
         x32 = torch.randn((Bx, Tx, c0), generator=gen).to(dev)
         err = (K2.cam_dense_block_cuda(x32, fp32, dil) - K2.cam_dense_block_infer(x32, fp32, dil, dtype=torch.float32)).abs().max().item()
-        phase("K2", f"block1 fp32 B={Bx} T={Tx}: max-abs {err:.3e} (bar 2e-4)")
-        if not err <= 2e-4:
-            raise AssertionError(f"K2 block1 fp32 B={Bx} T={Tx} disagrees with its twin: max-abs {err}")
-    # windows too long for u to fit shared memory: the kernel's global-scratch instance
-    for idx, Bx, Tx, dt, bar in ((2, 4, 400, torch.float32, 2e-4), (3, 4, 700, torch.bfloat16, None)):
+        xb = x32.to(torch.bfloat16)
+        ok, line = bf16_grown_ok(K2.cam_dense_block_cuda(xb, fp_bf16[f"block{idx}"], dil),
+                                 K2.cam_dense_block_infer(xb, fp_bf16[f"block{idx}"], dil, dtype=torch.bfloat16), c0)
+        plan = K2.launch_plan(Bx, Tx, dil, c0 + 32 * L)
+        phase("K2", f"block{idx} B={Bx} T={Tx}: fp32 max-abs {err:.3e} (bar 2e-4); bf16 (clusters of {plan.cl}, "
+              f"{plan.tc} frames per CTA) {line}")
+        if not (err <= 2e-4 and ok):
+            raise AssertionError(f"K2 block{idx} B={Bx} T={Tx} disagrees with its twin: fp32 max-abs {err}; bf16 {line}")
+    # input widths that are not a multiple of 32, bf16 at (8, 199): the blocks
+    # of shallower encoders (2/2/2: c0 96 and 80; 3/3/3: 112 and 104, so last
+    # k-slices of 8 to 48 channels), and of one with 100 initial channels
+    # (100, 98, 97: the wrapper's zero-padded channels)
+    from speaker_diarization_tpu_torch.models.campplus import CAMPPlus
+    from speaker_diarization_tpu_torch.models.layers import init_weights_
+
+    for init_c, layers in ((128, (2, 2, 2)), (128, (3, 3, 3)), (100, (3, 3, 3))):
+        small = CAMPPlus(init_channels=init_c, block_layers=layers, with_dense=False)
+        init_weights_(small, torch.Generator().manual_seed(init_c + sum(layers)))
+        small = small.to(dev)
+        cx = init_c
+        for idx, (L, dil) in enumerate(zip(layers, small.block_dilations), start=1):
+            bp = CF.prepare_block_params(getattr(small.xvector, f"block{idx}"), cx, cx + 32 * L, torch.bfloat16)
+            xb = torch.randn((8, 199, cx), generator=gen).to(dev, torch.bfloat16)
+            ok, line = bf16_grown_ok(K2.cam_dense_block_cuda(xb, bp, dil),
+                                     K2.cam_dense_block_infer(xb, bp, dil, dtype=torch.bfloat16), cx)
+            phase("K2", f"encoder {init_c} + {layers} block{idx} bf16 B=8 T=199 c0={cx} L={L} d={dil}: {line}")
+            if not ok:
+                raise AssertionError(f"K2 bf16 at c0={cx} L={L} disagrees with its twin: {line}")
+            cx = (cx + 32 * L) // 2
+    # long windows: fp32 T = 400 keeps u in the fp32 kernel's global scratch;
+    # bf16 T = 700 at B = 4 splits over clusters of 8 and keeps u in shared
+    # memory; bf16 T = 700 at B = 136 (one CTA per item) takes the bf16
+    # kernel's global-scratch instance
+    for idx, Bx, Tx, dt, bar in ((2, 4, 400, torch.float32, 2e-4), (3, 4, 700, torch.bfloat16, None),
+                                 (1, 136, 700, torch.bfloat16, None)):
         _, c0, L, dil = blocks[idx - 1]
-        if not K2.u_in_global(Tx, dt):
-            raise AssertionError(f"K2 at T={Tx} {dt} should keep u in the global scratch")
+        glob = K2.u_in_global(Bx, Tx, dt, dil, c0 + 32 * L)
+        if glob != (Bx != 4 or dt == torch.float32):
+            raise AssertionError(f"K2 at B={Bx} T={Tx} {dt}: u in the global scratch is {glob}")
+        if dt == torch.float32 and any(k2lib.sdt_cam_block_smem_bytes(t, 100, int(g)) != K2.smem_bytes_f32(t, 100, g)
+                                       for t in (199, Tx) for g in (False, True)):
+            raise AssertionError("K2's fp32 shared-memory sizes in Python and in the kernel disagree")
         bp = fp_bf16[f"block{idx}"] if dt == torch.bfloat16 else CF.prepare_block_params(
             getattr(camp.xvector, f"block{idx}"), c0, c0 + 32 * L, torch.float32)
         x = torch.randn((Bx, Tx, c0), generator=gen).to(dev, dt)
         got, ref = K2.cam_dense_block_cuda(x, bp, dil), K2.cam_dense_block_infer(x, bp, dil, dtype=dt)
-        d = (got.float() - ref.float()).abs()[..., c0:]
-        if bar is None:  # bf16: 4 steps at the twin's largest magnitude, and the mean
-            top = ref[..., c0:].float().abs().max().item()
-            bar = 4 * 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -30))) - 7)
-            ok = d.mean().item() <= 1e-3
+        if bar is None:
+            ok, line = bf16_grown_ok(got, ref, c0)
         else:
-            ok = True
-        phase("K2", f"block{idx} {str(dt)[6:]} B={Bx} T={Tx} (u in global scratch): grown max-abs "
-              f"{d.max().item():.3e} (bar {bar:.3e}), mean-abs {d.mean().item():.3e}")
-        if not (ok and d.max().item() <= bar and torch.isfinite(got.float()).all()):
-            raise AssertionError(f"K2 block{idx} T={Tx} {dt} (global scratch) disagrees with its twin")
+            err = (got - ref).abs()[..., c0:].max().item()
+            ok, line = err <= bar and bool(torch.isfinite(got).all()), f"grown max-abs {err:.3e} (bar {bar:.0e})"
+        phase("K2", f"block{idx} {str(dt)[6:]} B={Bx} T={Tx} (u in {'global scratch' if glob else 'shared memory'}): "
+              + line)
+        if not ok:
+            raise AssertionError(f"K2 block{idx} B={Bx} T={Tx} {dt} disagrees with its twin: {line}")
     k2["bound_by"] = bound(k2, H100_BF16_FLOPS)[1]
     records["cam_block"] = k2
 
     # ---- K4: the FCM head kernel vs its plain twin on the flagship's CAM++
-    # head. bf16 at the main path's (64, 398): mean-abs 1e-3 and max-abs of
-    # four bf16 steps at the twin's largest magnitude (K2's bar); fp32 at four
-    # shapes (T = 57: one partial tile; 200: two tiles; 798: the 8 s window)
-    # within 2e-4 (the JAX fp32 bar, tests/test_fcm_pallas.py) of the twin and
-    # of `_fcm_infer`, the cuDNN head K4 replaces (TF32 off: resolve_device)
+    # head. bf16 at the main path's (64, 398) (the fused-residual tensor-core
+    # instance, timed beside the previous version where build/prev holds it)
+    # and at three ragged shapes (T = 57: one partial window; 237: the end one
+    # frame into the second 256-frame window; 798: the 8 s window): mean-abs
+    # 1e-3 and the rounding bar, which must lie below the reading of the twin
+    # with a planted rounding fault, and max-abs of four bf16 steps at the
+    # twin's largest magnitude (K2's bar); fp32 at four shapes (T = 57: one
+    # partial tile; 200: two tiles; 798: the 8 s window) within 2e-4 (the JAX
+    # fp32 bar, tests/test_fcm_pallas.py) of the twin and of `_fcm_infer`,
+    # the cuDNN head K4 replaces (TF32 off: resolve_device)
     from speaker_diarization_tpu_torch.kernels import fcm as K4
+
+    k4lib = K4._lib()
+    tiling = {dt: (k4lib.sdt_fcm_window(int(dt == torch.bfloat16)), k4lib.sdt_fcm_halo()) for dt in K4.WINDOW}
+    if any(t != (K4.WINDOW[dt], K4.HALO) for dt, t in tiling.items()):
+        raise AssertionError(f"K4's tiling in Python ({K4.WINDOW}, halo {K4.HALO}) and in the kernel {tiling} disagree")
+
+    def unrounded_residual_twin(xb, params):
+        """The twin with a planted rounding fault: each residual block's conv
+        B output is added to the residual before it is rounded to bf16."""
+        conv = K4._conv3x3_folded
+        K4._conv3x3_folded = lambda h, w, sb, stride, dtype, relu=True: conv(
+            h, w, sb, stride, dtype if relu else torch.float32, relu)
+        try:
+            return K4.fcm_folded_torch(xb, params, torch.bfloat16)
+        finally:
+            K4._conv3x3_folded = conv
 
     B4, T4 = 64, 398
     flat = fp_bf16["head.fcm"]
     x = torch.randn((B4, T4, 80), generator=gen).to(dev, torch.bfloat16)
-    got, ref = K4.fcm_cuda(x, flat), K4.fcm_folded_torch(x, flat, torch.bfloat16)
+    with torch.no_grad():
+        got, ref = K4.fcm_cuda(x, flat), K4.fcm_folded_torch(x, flat, torch.bfloat16)
+        fault = (unrounded_residual_twin(x, flat).float() - ref.float()).abs().mean().item()
     torch.cuda.synchronize()
     d = (got.float() - ref.float()).abs()
     mean_err, max_err, top = d.mean().item(), d.max().item(), ref.float().abs().max().item()
     max_bar = 4 * 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -30))) - 7)
+    phase("K4", f"window {tiling[torch.bfloat16][0]} (fp32 {tiling[torch.float32][0]}), halo {K4.HALO} as in "
+          f"kernels/fcm.py; the twin with a planted rounding fault (conv B unrounded before the residual) reads "
+          f"mean-abs {fault:.3e}, above the rounding bar {K4_ROUNDING_BAR:.0e}")
+    if not fault > K4_ROUNDING_BAR:
+        raise AssertionError(f"K4's rounding bar {K4_ROUNDING_BAR} would pass a planted rounding fault ({fault})")
     with torch.no_grad():
         ms = cuda_ms(lambda: K4.fcm_cuda(x, flat), iters=10)
+        prev_ms = cuda_ms(lambda: prev["fcm"](x, flat), iters=10) if prev else None
         plain = cuda_ms(lambda: K4.fcm_folded_torch(x, flat, torch.bfloat16), iters=3, warmup=1)
         cudnn = cuda_ms(lambda: CF._fcm_infer(x, camp.head, fp_bf16), iters=10)
     bms, by = bound(K4.fcm_work(B4, T4, elem_bytes=2), H100_BF16_FLOPS)
-    phase("K4", f"fcm bf16 ({B4}, {T4}, 80) -> {tuple(got.shape)}: mean-abs {mean_err:.3e} (bar 1e-3), max-abs "
-          f"{max_err:.3e} (bar {max_bar:.3e}, max|twin| {top:.3f}); kernel {ms:.4f} ms, plain twin {plain:.4f} ms, "
-          f"cuDNN head (_fcm_infer) {cudnn:.4f} ms, bound {bms:.4f} ms ({by}, bf16 tensor-core peak)")
-    if not (mean_err <= 1e-3 and max_err <= max_bar and torch.isfinite(got.float()).all()):
+    phase("K4", f"fcm bf16 ({B4}, {T4}, 80) -> {tuple(got.shape)}: mean-abs {mean_err:.3e} (bar 1e-3, rounding "
+          f"bar {K4_ROUNDING_BAR:.0e}), max-abs {max_err:.3e} (bar {max_bar:.3e}, max|twin| {top:.3f}); kernel "
+          f"{ms:.4f} ms, previous kernel {'not measured' if prev_ms is None else f'{prev_ms:.4f} ms'}, plain twin "
+          f"{plain:.4f} ms, cuDNN head (_fcm_infer) {cudnn:.4f} ms, bound {bms:.4f} ms ({by}, bf16 tensor-core peak)")
+    if not (mean_err <= min(1e-3, K4_ROUNDING_BAR) and max_err <= max_bar and torch.isfinite(got.float()).all()):
         raise AssertionError(f"K4 bf16 disagrees with its twin: mean-abs {mean_err}, max-abs {max_err} (bar {max_bar})")
-    records["fcm"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, err=max_err)
+    records["fcm"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, err=max_err, prev_ms=prev_ms)
+    for Bx, Tx in ((3, 57), (2, 237), (4, 798)):
+        xb = torch.randn((Bx, Tx, 80), generator=gen).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            got, ref = K4.fcm_cuda(xb, flat), K4.fcm_folded_torch(xb, flat, torch.bfloat16)
+        d = (got.float() - ref.float()).abs()
+        bar = 4 * 2.0 ** (math.floor(math.log2(max(ref.float().abs().max().item(), 2.0 ** -30))) - 7)
+        phase("K4", f"fcm bf16 ({Bx}, {Tx}, 80): mean-abs {d.mean().item():.3e} (bar 1e-3, rounding bar "
+              f"{K4_ROUNDING_BAR:.0e}), max-abs {d.max().item():.3e} (bar {bar:.3e})")
+        if not (d.mean().item() <= min(1e-3, K4_ROUNDING_BAR) and d.max().item() <= bar
+                and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"K4 bf16 ({Bx}, {Tx}) disagrees with its twin")
     flat32 = K4.prepare_fcm_params(camp.head, torch.float32)
     fp_f32 = CF.fused_params(camp, torch.float32)
     for Bx, Tx in ((16, 398), (3, 57), (2, 200), (4, 798)):
@@ -590,6 +787,17 @@ def main() -> int:
         if tuple(got_l.shape) != (4, 200, 4) or not err_l <= 1e-3 * scale_l:
             raise AssertionError(f"fp32 8 s forward disagrees with the plain twins: max-abs {err_l}")
         del m32
+        # shallower encoders, whose dense blocks take input widths that are
+        # not a multiple of 32 (1/1/1: 128, 80, 56; 2/2/2: 128, 96, 80)
+        for layers in ((1, 1, 1), (2, 2, 2)):
+            ms_ = TSVADModel(dataclasses.replace(cfg, encoder_block_layers=layers), dtype="bf16", device=dev, seed=0)
+            got_s, ref_s = ms_(a8, e8, n_label), plain_forward(ms_, a8, e8, n_label)
+            err_s, scale_s = (got_s - ref_s).abs().mean().item(), max(1.0, ref_s.abs().mean().item())
+            phase("forward", f"bf16 logits, encoder blocks {layers} (B=8) vs plain twins: mean-abs {err_s:.3e} "
+                  f"(bar 5e-2 x {scale_s:.3f})")
+            if not (err_s <= 5e-2 * scale_s and torch.isfinite(got_s).all()):
+                raise AssertionError(f"bf16 forward at encoder blocks {layers} disagrees: mean-abs {err_s}")
+            del ms_
 
     tp = throughput(model, audios, embss, n_label, iters=20, reps=3)
     phase("throughput", f"TS-VAD bf16 batch 64 x 4 s: {tp['ms_per_forward']:.3f} ms/forward, "

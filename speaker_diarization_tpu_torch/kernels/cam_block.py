@@ -17,7 +17,7 @@ kernel for a CUDA tensor and runs the twin for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as Fn
@@ -82,20 +82,117 @@ def _lib():
     if not getattr(lib, "_sdt_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.sdt_cam_block_smem_bytes.restype = ctypes.c_size_t
-        lib.sdt_cam_block_smem_bytes.argtypes = [I, I, I, I]
-        for fn in (lib.sdt_cam_block_f32, lib.sdt_cam_block_bf16):
-            fn.restype = I
-            fn.argtypes = [P] * 14 + [I] * 7 + [P]
+        lib.sdt_cam_block_smem_bytes.argtypes = [I, I, I]
+        lib.sdt_cam_block_tc_smem_bytes.restype = ctypes.c_size_t
+        lib.sdt_cam_block_tc_smem_bytes.argtypes = [I, I, I]
+        lib.sdt_cam_block_f32.restype = I
+        lib.sdt_cam_block_f32.argtypes = [P] * 14 + [I] * 7 + [P]
+        lib.sdt_cam_block_bf16.restype = I
+        lib.sdt_cam_block_bf16.argtypes = [P] * 13 + [I] * 11 + [P]
         lib._sdt_typed = True
     return lib
 
 
-def u_in_global(T: int, dtype: torch.dtype, seg_len: int = 100) -> bool:
-    """Whether the kernel keeps u (T, 128) in a global scratch at this T:
-    it does once u no longer fits shared memory (fp32 T > 290, bf16 T > 656)."""
+# ---------------------------------------------------------------------------
+# Shared-memory sizes and the bf16 kernel's cluster plan (mirrors of the
+# kernel's own layout functions, so that the CPU tests reach them)
+# ---------------------------------------------------------------------------
+
+N_SM = 132  # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8  # the largest portable thread-block cluster
+MIN_FRAMES = 16  # fewest frames a CTA of the bf16 kernel owns
+_TC_MT, _TC_KT, _TC_STAGES = 128, 64, 3  # projection rows per chunk, depth per stage, ring depth
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes_f32(T: int, seg_len: int = 100, u_global: bool = False) -> int:
+    """Shared memory of the fp32 kernel (cam_block.cu `smem_bytes<float>`)."""
+    n = _align16(BOTTLENECK * 4) + 4 * 104 * 32 + 4 * 32 * BOTTLENECK + _align16(3 * BOTTLENECK * GROWTH * 4)
+    if not u_global:
+        n += _align16(T * BOTTLENECK * 4) + 4 * (-(-T // seg_len)) * SEG_FLOATS
+    return n
+
+
+def smem_bytes_bf16(c_max: int, u_rows: int, nls: int) -> int:
+    """Shared memory of one CTA of the bf16 kernel (cam_block.cu `k2tc::layout`)."""
+    n = _TC_STAGES * _TC_MT * (_TC_KT + 8) * 2 + _TC_STAGES * _TC_KT * (BOTTLENECK + 8) * 2
+    n += 3 * BOTTLENECK * (GROWTH + 8) * 2 + _align16(2 * c_max * 2) + _align16(u_rows * (BOTTLENECK + 8) * 2)
+    return n + 4 * (2 * nls * BOTTLENECK + 6 * BOTTLENECK + nls * (CONTEXT_HIDDEN + GROWTH))
+
+
+class LaunchPlan(NamedTuple):
+    """How the bf16 kernel splits a (B, T) block: `cl` CTAs per batch item
+    (one thread-block cluster), CTA r owning frames [r·tc, min(T, (r+1)·tc));
+    `nls` the most segments one CTA's frames touch; `u_rows` the rows of u in
+    a CTA's shared memory; `u_global` whether u lives in the global scratch."""
+
+    cl: int
+    tc: int
+    nls: int
+    u_rows: int
+    u_global: bool
+    smem: int
+
+    def ranges(self, T: int):
+        return [(r * self.tc, min(T, (r + 1) * self.tc)) for r in range(self.cl)]
+
+
+def launch_plan(B: int, T: int, dilation: int, c_max: int, seg_len: int = 100) -> LaunchPlan:
+    """The cluster size and frame ranges of the bf16 kernel at (B, T).
+
+    cl is the largest size up to 8 with B·cl CTAs in one wave on N_SM SMs
+    (one CTA per SM) and at least MIN_FRAMES (and dilation) frames per CTA,
+    then cut while a CTA would own no frame: B = 64, T = 199 gives cl = 2,
+    128 CTAs of 100 and 99 frames. u stays in shared memory unless the CTA's
+    frames with their halos do not fit there; where even the global-scratch
+    instance's segment arrays do not fit (windows of minutes), cl grows.
+    """
     from ._build import SMEM_LIMIT
 
-    return _lib().sdt_cam_block_smem_bytes(T, seg_len, int(dtype == torch.bfloat16), 0) > SMEM_LIMIT
+    cl = max(1, min(MAX_CLUSTER, N_SM // max(B, 1), T // max(MIN_FRAMES, dilation)))
+    while True:
+        tc = -(-T // cl)
+        while cl > 1 and (cl - 1) * tc >= T:
+            cl -= 1
+            tc = -(-T // cl)
+        nls = max((min(T, (r + 1) * tc) - 1) // seg_len - r * tc // seg_len + 1 for r in range(cl))
+        u_rows = -(-tc // 16) * 16 + 2 * dilation
+        smem = smem_bytes_bf16(c_max, u_rows, nls)
+        u_global = smem > SMEM_LIMIT
+        if u_global:
+            u_rows = _TC_MT + 2 * dilation
+            smem = smem_bytes_bf16(c_max, u_rows, nls)
+        if smem <= SMEM_LIMIT:
+            return LaunchPlan(cl, tc, nls, u_rows, u_global, smem)
+        if cl >= MAX_CLUSTER or T // (cl + 1) < max(MIN_FRAMES, dilation):
+            raise ValueError(f"cam_dense_block_cuda: no launch plan fits shared memory at T={T}, c_max={c_max}")
+        cl += 1
+
+
+def u_in_global(B: int, T: int, dtype: torch.dtype, dilation: int, c_max: int, seg_len: int = 100) -> bool:
+    """Whether the kernel keeps u (T, 128) in a global scratch at this shape:
+    fp32 once u no longer fits one block's shared memory (T > 290); bf16 once
+    a CTA's share of the frames does not (only where B > 66 leaves one CTA
+    per item, at T / cl above ~270)."""
+    from ._build import SMEM_LIMIT
+
+    if dtype == torch.bfloat16:
+        return launch_plan(B, T, dilation, c_max, seg_len).u_global
+    return smem_bytes_f32(T, seg_len) > SMEM_LIMIT
+
+
+def pad_input_width(bp: Dict[str, torch.Tensor], c0: int, p: int) -> Dict[str, torch.Tensor]:
+    """The block's parameters for an input of c0 + p channels whose last p
+    are zeros: zero BN scale and bias and zero W1 rows there, so h is 0 on
+    them and adds exact zeros to every product."""
+    out = dict(bp)
+    for k in ("s1", "b1", "W1"):
+        t = bp[k]
+        out[k] = torch.cat([t[:, :c0], t.new_zeros((t.shape[0], p) + t.shape[2:]), t[:, c0:]], dim=1)
+    return out
 
 
 def cam_dense_block_cuda(
@@ -104,7 +201,8 @@ def cam_dense_block_cuda(
     """One whole dense block in one kernel launch, computed in x.dtype.
 
     A CPU tensor runs `cam_dense_block_infer`; a CUDA tensor launches the
-    kernel or raises. Counts its launches in `cam_dense_block_cuda.launches`.
+    kernel or raises (a refused cluster launch included). Counts its
+    launches in `cam_dense_block_cuda.launches`.
     """
     if not x.is_cuda:
         return cam_dense_block_infer(x, bp, dilation, seg_len, dtype=x.dtype)
@@ -116,30 +214,46 @@ def cam_dense_block_cuda(
         raise ValueError("cam_dense_block_cuda supports bottleneck 128, growth 32, context hidden 64 only")
     if c0 + GROWTH * L != c_max:
         raise ValueError(f"input width {c0} + 32·{L} layers != buffer width {c_max}")
+    if x.dtype == torch.bfloat16 and c0 % 8:
+        # the bf16 kernel copies buffer rows in 16-byte pieces: run it with
+        # zero channels after x, then drop them
+        p = -c0 % 8
+        out = cam_dense_block_cuda(Fn.pad(x, (0, p)), pad_input_width(bp, c0, p), dilation, seg_len)
+        return torch.cat([out[..., :c0], out[..., c0 + p :]], dim=-1)
     args = []
     for k in _ARGS:
         t = bp[k].to(device=x.device, dtype=x.dtype if k in _WEIGHTS else torch.float32).contiguous()
         args.append(t)
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
     out = torch.empty((B, T, c_max), dtype=x.dtype, device=x.device)
     if B == 0 or T == 0:
         return out
     lib = _lib()
     from ._build import check
 
-    scratch = []  # u and the per-segment context, when u does not fit shared memory
-    if u_in_global(T, x.dtype, seg_len):
-        n_seg = -(-T // seg_len)
-        scratch = [
-            torch.empty((B, T, BOTTLENECK), dtype=x.dtype, device=x.device),
-            torch.empty((B, n_seg, SEG_FLOATS), dtype=torch.float32, device=x.device),
-        ]
-    scratch_ptrs = [t.data_ptr() for t in scratch] or [None, None]
-    fn = lib.sdt_cam_block_bf16 if x.dtype == torch.bfloat16 else lib.sdt_cam_block_f32
-    code = fn(
-        x.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args], *scratch_ptrs,
-        B, T, c0, c_max, L, dilation, seg_len, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [a.data_ptr() for a in args]
+    if x.dtype == torch.bfloat16:
+        plan = launch_plan(B, T, dilation, c_max, seg_len)
+        u_g = torch.empty((B, 2, T, BOTTLENECK), dtype=x.dtype, device=x.device) if plan.u_global else None
+        code = lib.sdt_cam_block_bf16(
+            x.data_ptr(), out.data_ptr(), *ptrs, None if u_g is None else u_g.data_ptr(),
+            B, T, c0, c_max, L, dilation, seg_len, plan.cl, plan.tc, plan.nls, plan.u_rows, stream,
+        )
+    else:
+        scratch = []  # u and the per-segment context, when u does not fit shared memory
+        if u_in_global(B, T, x.dtype, dilation, c_max, seg_len):
+            n_seg = -(-T // seg_len)
+            scratch = [
+                torch.empty((B, T, BOTTLENECK), dtype=x.dtype, device=x.device),
+                torch.empty((B, n_seg, SEG_FLOATS), dtype=torch.float32, device=x.device),
+            ]
+        scratch_ptrs = [t.data_ptr() for t in scratch] or [None, None]
+        code = lib.sdt_cam_block_f32(
+            x.data_ptr(), out.data_ptr(), *ptrs, *scratch_ptrs, B, T, c0, c_max, L, dilation, seg_len, stream,
+        )
     check(lib, code, "cam_dense_block_cuda")
     cam_dense_block_cuda.launches += 1
     return out

@@ -25,6 +25,11 @@ import torch.nn.functional as Fn
 
 CHANNELS, N_BINS, N_UNITS = 32, 80, 12  # the kernel's fixed FCM widths
 OUT_DIM = CHANNELS * N_BINS // 8  # 320: (B, T, 32 channels x 10 bins), channel-major
+# the kernel's time tiling: a block owns a window of WINDOW frames, of which
+# the middle WINDOW - 2·HALO are its output (one halo frame per time-tapped
+# conv); chip_smoke.py holds them to the kernel's sdt_fcm_window/sdt_fcm_halo
+HALO = 10
+WINDOW = {torch.bfloat16: 256, torch.float32: 128}
 
 
 @torch.no_grad()
@@ -139,7 +144,11 @@ def _lib():
     if not getattr(lib, "_sdt_typed", False):
         P, I, PP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
         lib.sdt_fcm_scratch_elems.restype = ctypes.c_size_t
-        lib.sdt_fcm_scratch_elems.argtypes = [I, I]
+        lib.sdt_fcm_scratch_elems.argtypes = [I, I, I]
+        lib.sdt_fcm_window.restype = I
+        lib.sdt_fcm_window.argtypes = [I]
+        lib.sdt_fcm_halo.restype = I
+        lib.sdt_fcm_halo.argtypes = []
         for fn in (lib.sdt_fcm_f32, lib.sdt_fcm_bf16):
             fn.restype = I
             fn.argtypes = [P, P, PP, PP, P, I, I, P]
@@ -177,7 +186,7 @@ def fcm_cuda(fbank: torch.Tensor, flat_params) -> torch.Tensor:
     lib = _lib()
     from ._build import check
 
-    scratch = torch.empty(lib.sdt_fcm_scratch_elems(B, T), dtype=dt, device=dev)
+    scratch = torch.empty(lib.sdt_fcm_scratch_elems(B, T, int(dt == torch.bfloat16)), dtype=dt, device=dev)
     w_ptrs = (ctypes.c_void_p * N_UNITS)(*[t.data_ptr() for t in ws])
     sb_ptrs = (ctypes.c_void_p * N_UNITS)(*[t.data_ptr() for t in sbs])
     fn = lib.sdt_fcm_bf16 if dt == torch.bfloat16 else lib.sdt_fcm_f32

@@ -71,6 +71,20 @@ class TestBlockTwin:
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert K2.cam_dense_block_cuda.launches == launches
 
+    @pytest.mark.parametrize("c0", [44, 97])
+    def test_padded_input_width_is_the_block(self, c0):
+        # the bf16 kernel runs widths that are not a multiple of 8 with zero
+        # channels after x (pad_input_width); the block's function is unchanged
+        L, p = 2, -c0 % 8
+        _, _, bp = _jax_block_params(c0, L, 2, seed=c0)
+        bp = _to_torch(bp)
+        x = torch.from_numpy(np.random.default_rng(c0).standard_normal((2, 130, c0)).astype(np.float32))
+        padded = K2.cam_dense_block_infer(
+            torch.nn.functional.pad(x, (0, p)), K2.pad_input_width(bp, c0, p), 2, dtype=torch.float32)
+        assert padded.shape[-1] == c0 + p + 32 * L and not padded[..., c0 : c0 + p].any()
+        got = torch.cat([padded[..., :c0], padded[..., c0 + p :]], dim=-1)
+        torch.testing.assert_close(got, K2.cam_dense_block_infer(x, bp, 2, dtype=torch.float32), rtol=0, atol=2e-6)
+
     def test_prepare_block_params_matches_jax(self):
         C0, L = 64, 3
         model = CAMPPlus(block_layers=(L,), block_dilations=(1,), init_channels=C0)
@@ -92,6 +106,103 @@ class TestBlockTwin:
         w = K2.cam_block_work(64, 199, 512, 16)
         assert 40e9 < w["flops"] < 48e9
         assert w["bytes"] > 2 * 64 * 199 * (512 + 1024)
+
+
+def _split_block(x, bp, d, cl, seg_len=100):
+    """The bf16 kernel's decomposition of one dense block in plain fp32 torch:
+    cl CTAs owning frames [r·tc, min(T, (r+1)·tc)); each projects its own
+    frames, sums them per segment (four row quarters added in order, then the
+    segments in order), the cluster's sums are added in rank order, and the
+    conv reads the dil-frame halo of u from the neighbours (zeros outside
+    [0, T))."""
+    B, T, c0 = x.shape
+    L, c_max = bp["W1"].shape[:2]
+    tc = -(-T // cl)
+    ranges = [(r * tc, min(T, (r + 1) * tc)) for r in range(cl)]
+    assert all(t0 < t1 for t0, t1 in ranges)
+    buf = torch.zeros((B, T, c_max))
+    buf[..., :c0] = x
+    for i in range(L):
+        c_in = c0 + 32 * i
+        us, parts = [], []
+        for t0, t1 in ranges:
+            h = torch.relu(buf[:, t0:t1, :c_in] * bp["s1"][i, :c_in] + bp["b1"][i, :c_in])
+            u = torch.relu((h @ bp["W1"][i, :c_in]) * bp["s2"][i] + bp["b2"][i])
+            ps = {}
+            for S in range(t0 // seg_len, (t1 - 1) // seg_len + 1):
+                lo, hi = max(t0, S * seg_len) - t0, min(t1, (S + 1) * seg_len) - t0
+                q = [u[:, lo + (hi - lo) * k // 4 : lo + (hi - lo) * (k + 1) // 4].sum(1) for k in range(4)]
+                ps[S] = ((q[0] + q[1]) + q[2]) + q[3]
+            col = torch.zeros((B, 128))
+            for S in sorted(ps):
+                col = col + ps[S]
+            us.append(u)
+            parts.append((ps, col))
+        gsum = torch.zeros((B, 128))
+        for _, col in parts:
+            gsum = gsum + col
+        for r, (t0, t1) in enumerate(ranges):
+            rows = []
+            for t in [*range(t0 - d, t0), *range(t1, t1 + d)]:
+                rows.append(us[t // tc][:, t - (t // tc) * tc] if 0 <= t < T else torch.zeros((B, 128)))
+            u_ext = torch.cat([torch.stack(rows[:d], 1), us[r], torch.stack(rows[d:], 1)], dim=1)
+            n = t1 - t0
+            loc = sum(u_ext[:, k * d : k * d + n] @ bp["K"][i, k] for k in range(3))
+            m = []
+            for S in range(t0 // seg_len, (t1 - 1) // seg_len + 1):
+                tot = torch.zeros((B, 128))
+                for ps, _ in parts:
+                    if S in ps:
+                        tot = tot + ps[S]
+                ctx = gsum / T + tot / min(seg_len, T - S * seg_len)
+                a = torch.relu(ctx @ bp["Wc1"][i] + bp["bc1"][i])
+                m.append(torch.sigmoid(a @ bp["Wc2"][i] + bp["bc2"][i]))
+            seg = torch.arange(t0, t1) // seg_len - t0 // seg_len
+            buf[:, t0:t1, c_in : c_in + 32] = loc * torch.stack(m, 1)[:, seg]
+    return buf
+
+
+class TestClusterSplit:
+    """K2's bf16 kernel splits T over the CTAs of a cluster; its decomposition
+    (emulated in fp32) is the block's function, and its launch plan covers
+    every frame once, fits shared memory and fills the card."""
+
+    @pytest.mark.parametrize("cl", [1, 2, 3, 4])
+    @pytest.mark.parametrize("T", [57, 199, 200, 250])
+    def test_split_matches_the_twin(self, T, cl):
+        d = 2 if T % 2 else 1
+        _, _, bp = _jax_block_params(64, 3, d, seed=T + cl)
+        bp = _to_torch(bp)
+        x = torch.from_numpy(np.random.default_rng(T * cl).standard_normal((2, T, 64)).astype(np.float32))
+        got = _split_block(x, bp, d, cl)
+        ref = K2.cam_dense_block_infer(x, bp, d, dtype=torch.float32)
+        torch.testing.assert_close(got, ref, rtol=0, atol=2e-5)
+
+    def test_some_cta_edge_falls_inside_a_segment(self):
+        edges = {(T, cl): [r * -(-T // cl) for r in range(1, cl)] for T in (57, 199, 200, 250) for cl in (2, 3, 4)}
+        assert any(e % 100 for es in edges.values() for e in es)
+        assert 67 in edges[(199, 3)] and 125 in edges[(250, 2)]
+
+    def test_plan_fills_the_card_at_the_main_shape(self):
+        for c_max, d in ((512, 1), (1024, 2), (1024, 2)):
+            plan = K2.launch_plan(64, 199, d, c_max)
+            assert 64 * plan.cl >= 128 and 64 * plan.cl <= K2.N_SM
+            assert not plan.u_global
+
+    @pytest.mark.parametrize("B", [1, 3, 16, 64, 67, 136, 512])
+    def test_plan_covers_every_frame_once_and_fits(self, B):
+        from speaker_diarization_tpu_torch.kernels._build import SMEM_LIMIT
+
+        # T up to the 8 s window's 400 frames, and long windows beyond it
+        for T in (1, 16, 57, 199, 200, 250, 399, 400, 700, 3000):
+            for c_max, d in ((512, 1), (1024, 2), (144, 2)):
+                plan = K2.launch_plan(B, T, d, c_max)
+                frames = [t for t0, t1 in plan.ranges(T) for t in range(t0, t1)]
+                assert frames == list(range(T)), (B, T, plan)
+                assert 1 <= plan.cl <= 8 and plan.smem <= SMEM_LIMIT, (B, T, plan)
+                assert plan.smem == K2.smem_bytes_bf16(c_max, plan.u_rows, plan.nls)
+                if T <= 400:
+                    assert B * plan.cl <= max(B, K2.N_SM), (B, T, plan)
 
 
 def _apply(jmodel, variables, fb, mode):

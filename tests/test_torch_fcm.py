@@ -175,3 +175,33 @@ def test_work_counts():
     macs = 2_388_480 * 64 * 398
     assert 2 * macs <= w["flops"] < 2 * macs * 1.02  # 121.7 GFLOP, plus BN/ReLU work
     assert 2 * 64 * 398 * 400 <= w["bytes"] < 2 * 64 * 398 * 400 + 1e6  # fbank in, (B, T, 320) out, weights
+
+
+def _tiled_fcm(fb, flat, window):
+    """K4's time tiling in plain torch: tile k owns the output frames
+    [k·TT, (k+1)·TT), TT = window - 2·HALO, and computes the head on its
+    window [k·TT - HALO, k·TT - HALO + window) with zeros outside [0, T) and
+    outside the window, as the kernel's staged rows have."""
+    B, T, _ = fb.shape
+    tt = window - 2 * K4.HALO
+    out = torch.empty((B, T, K4.OUT_DIM))
+    for k in range(-(-T // tt)):
+        a, b = max(0, k * tt - K4.HALO), min(T, k * tt - K4.HALO + window)
+        part = K4.fcm_folded_torch(fb[:, a:b], flat, torch.float32)
+        o0, o1 = k * tt, min(T, (k + 1) * tt)
+        out[:, o0:o1] = part[:, o0 - a : o1 - a]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [57, 200, 398, 600])
+def test_window_tiling_matches_the_twin(camp_pair, dtype, T):
+    """Each kernel instance's window (bf16 256 frames, fp32 128) with its
+    10-frame halo gives the whole head's output (fp32 arithmetic)."""
+    _, _, model = camp_pair
+    flat = K4.prepare_fcm_params(model.head, torch.float32)
+    fb = torch.from_numpy(_fbank(2, T, T))
+    with torch.no_grad():
+        got = _tiled_fcm(fb, flat, K4.WINDOW[dtype])
+        ref = K4.fcm_folded_torch(fb, flat, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-6)
