@@ -8,9 +8,12 @@ EEND log-mel, K2 CAM++ dense block, K3a/K3b/K3c selective scan, K4 CAM++
 FCM head) against its plain PyTorch twin on the card at the shapes of the
 main paths (K4 also against the cuDNN head it replaces; K2 run twice must
 give the same bits; K2 also at the input widths of shallower encoders, and
-bf16 TS-VAD forwards with them). Where build/prev/{cam_block,fcm}.cu hold K2 and K4 as
-of commit 8cf507d (copied there from git for a call; build/ is not
-committed), they are built and timed beside the current ones. Then drives, each
+bf16 TS-VAD forwards with them; K1 and K1′ run twice must give the same bits,
+and ptxas's registers and spills of each K1 instance are printed). Where
+build/prev/{cam_block,fcm}.cu hold K2 and K4 as of commit 8cf507d, and where
+build/prev/fbank.cu holds K1/K1′ as of commit 2eeeb87 (copied there from git
+for a call; build/ is not committed), they are built and timed beside the
+current ones. Then drives, each
 with the launch counts set to 0 just before and read just after:
 - the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
   random weights): fbank 1, cam_block 3, fcm 1;
@@ -170,6 +173,126 @@ def prev_kernels():
         return out
 
     return {"cam_block": cam_block, "fcm": fcm}
+
+
+# the git blob id of fbank.cu at commit 2eeeb87 (the radix-2 K1/K1′, one CTA
+# per 8 frames), the only version whose C interface prev_fbank calls
+PREV_FBANK_BLOB = "09f7470c5770cf6754f83f3f3b4fe769b9a19a99"
+
+
+def start_prev_fbank():
+    """Start building K1/K1′ as of commit 2eeeb87 from build/prev/fbank.cu,
+    where a call put it there (`git show 2eeeb87:speaker_diarization_tpu_torch/csrc/fbank.cu
+    > build/prev/fbank.cu`; build/ is not committed), in parallel with the
+    port's own builds; None where it is absent. Any other source raises: the
+    ctypes signatures of prev_fbank are that commit's."""
+    import hashlib
+
+    from speaker_diarization_tpu_torch.kernels import _build
+
+    src = os.path.join(PREV_DIR, "fbank.cu")
+    if not os.path.exists(src):
+        return None
+    with open(src, "rb") as f:
+        data = f.read()
+    if hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest() != PREV_FBANK_BLOB:
+        raise RuntimeError("build/prev/fbank.cu is not fbank.cu of commit 2eeeb87, whose C interface the timing calls")
+    so = src[:-3] + ".so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so
+
+
+def prev_fbank(started):
+    """The previous K1 and K1′ from `start_prev_fbank()`'s build, or None:
+    {"fbank": fn(x, sr, n_mels), "logmel": fn(x, T, fs, sh, sr, n_mels)},
+    on the same device constants as the current wrappers."""
+    import ctypes
+
+    import torch
+
+    from speaker_diarization_tpu_torch.kernels import _build
+    from speaker_diarization_tpu_torch.kernels import fbank as K1
+    from speaker_diarization_tpu_torch.ops import features as FE
+
+    if started is None:
+        return None
+    proc, so = started
+    log = proc.communicate()[0].decode(errors="replace")
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for build/prev/fbank.cu:\n{log}")
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sdt_cuda_error_string.restype = ctypes.c_char_p
+    lib.sdt_cuda_error_string.argtypes = [I]
+    lib.sdt_fbank_f32.restype = I
+    lib.sdt_fbank_f32.argtypes = [P] * 7 + [I] * 9 + [ctypes.c_float, ctypes.c_float, I, P]
+    lib.sdt_logmel_f32.restype = I
+    lib.sdt_logmel_f32.argtypes = [P] * 7 + [I] * 8 + [P]
+    ptrs = lambda c: [c[k].data_ptr() for k in ("window", "tw_re", "tw_im", "mel_w", "mel_start")]  # noqa: E731
+
+    def fbank(x, sr, n_mels):
+        win, shift, n_fft = FE.frame_params(sr)
+        B, N = x.shape
+        T = 1 + (N - win) // shift
+        c = K1._device_consts(K1._host_consts, sr, n_mels, win, n_fft, x.device)
+        out = torch.empty((B, T, n_mels), dtype=torch.float32, device=x.device)
+        code = lib.sdt_fbank_f32(x.data_ptr(), out.data_ptr(), *ptrs(c), B, N, T, win, shift, n_fft,
+                                 n_fft.bit_length() - 1, n_mels, c["mel_w"].shape[1], 32768.0, 0.97, 1,
+                                 torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, "previous fbank")
+        return out
+
+    def logmel(x, T, fs, sh, sr, n_mels):
+        n_fft = FE.fft_size_for(fs)
+        B, N = x.shape
+        c = K1._device_consts(K1._logmel_consts, sr, n_mels, fs, n_fft, x.device)
+        out = torch.empty((B, T, n_mels), dtype=torch.float32, device=x.device)
+        code = lib.sdt_logmel_f32(x.data_ptr(), out.data_ptr(), *ptrs(c), B, N, T, sh, n_fft,
+                                  n_fft.bit_length() - 1, n_mels, c["mel_w"].shape[1],
+                                  torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, "previous logmel")
+        return out
+
+    return {"fbank": fbank, "logmel": logmel}
+
+
+def graph_ms(fn, iters=20, reps=5):
+    """Device ms of one call of `fn`: `iters` calls captured in a CUDA graph,
+    replayed `reps` times between two events, so that the host's dispatch of
+    a short kernel does not stand in for its time."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def paired_ms(fn, prev_fn):
+    """(kernel ms, previous kernel ms or None) on the device (`graph_ms`),
+    timed in turns kernel, previous, previous, kernel on one card; each the
+    mean of its two runs."""
+    if prev_fn is None:
+        return graph_ms(fn), None
+    a, b = graph_ms(fn), graph_ms(prev_fn)
+    b2, a2 = graph_ms(prev_fn), graph_ms(fn)
+    return (a + a2) / 2, (b + b2) / 2
 
 
 def cli(*args, timeout=600):
@@ -342,6 +465,7 @@ def main() -> int:
     phase("device", f"{name} | {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
+    prev_fbank_build = start_prev_fbank()
     built = _build.build_all()
     phase("build", f"{json.dumps({k: round(v, 2) for k, v in built.items()})} wall {time.perf_counter() - t0:.2f} s "
           f"(cached: {sorted(set(_build.sources()) - set(built))})")
@@ -356,48 +480,89 @@ def main() -> int:
     gen = torch.Generator(device="cpu").manual_seed(0)
     records = {}
 
-    # ---- K1: fbank kernel vs its plain twin (fp32)
+    # ---- K1: fbank kernel vs its plain twin (fp32), at the TS-VAD shape and
+    # the recipe's 8 kHz front end; two runs must give the same bits; the
+    # previous kernel (build/prev, where a call put it) is timed beside it
+    prev1 = prev_fbank(prev_fbank_build)
+    phase("prev", "the previous K1/K1′ built from build/prev/fbank.cu for timing" if prev1 else
+          "no build/prev/fbank.cu: the previous K1/K1′ is not timed")
+    props, fn = {}, None  # ptxas's registers and spills of each instance of the kernel
+    for line in _build.build_log("fbank").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?[\w$]*fbank_kernelILi(\d+)E", line)
+        fn = m.group(1) if m else (None if "entry function" in line or "properties for" in line else fn)
+        if fn and re.search(r"registers|spill", line):
+            props.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    for inst, lines in sorted(props.items(), key=lambda kv: int(kv[0])):
+        phase("K1", f"fbank_kernel<{inst}> (n_fft {2 * int(inst)}): {' | '.join(lines)}")
+    k1lib = K1._lib()
     for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000))):
         x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
+        win, shift, n_fft = FE.frame_params(sr)
+        T = 1 + (shape[1] - win) // shift
+        mel_len = K1._host_consts(sr, n_mels, win, n_fft)["mel_w"].shape[1]
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = K1.launch_plan(shape[0], T, win, shift, n_fft, n_mels, mel_len, n_sm)
+        c_smem = k1lib.sdt_fbank_smem_bytes(plan.frames_per_tile, win, shift, n_fft, n_mels, mel_len)
+        if c_smem != plan.smem or plan.grid < 132:
+            raise AssertionError(f"K1 plan at {shape}: {plan}, kernel smem {c_smem}")
         got = K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels)
+        again = K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels)
         ref = FE.kaldi_fbank_torch(x, sample_rate=sr, num_mel_bins=n_mels, mean_norm=False)
         torch.cuda.synchronize()
+        same = torch.equal(got, again)
         err = (got - ref).abs().max().item()
-        ms = cuda_ms(lambda: K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels))
+        ms, prev_ms = paired_ms(lambda: K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels),
+                                (lambda: prev1["fbank"](x, sr, n_mels)) if prev1 else None)
+        eager = cuda_ms(lambda: K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels))
+        prev_err = (prev1["fbank"](x, sr, n_mels) - ref).abs().max().item() if prev1 else None
         plain = cuda_ms(lambda: FE.kaldi_fbank_torch(x, sample_rate=sr, num_mel_bins=n_mels, mean_norm=False))
         work = K1.fbank_work(shape[0], shape[1], sr, n_mels)
         bms, by = bound(work, H100_FP32_FLOPS)
-        phase("K1", f"fbank {sr} Hz/{n_mels} {tuple(shape)} -> {tuple(got.shape)}: max-abs {err:.3e} (bar 5e-3), "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
-        if not (err <= 5e-3 and torch.isfinite(got).all()):
-            raise AssertionError(f"K1 disagrees with its twin at {sr} Hz: max-abs {err}")
+        phase("K1", f"fbank {sr} Hz/{n_mels} {tuple(shape)} -> {tuple(got.shape)} ({plan.grid} CTAs, "
+              f"{plan.tiles} tiles of {plan.frames_per_tile} frames, {plan.smem} B smem): max-abs {err:.3e} "
+              f"(bar 5e-3), two runs bitwise equal: {same}; kernel {ms:.4f} ms (device; {eager:.4f} ms a call "
+              f"from the host), previous kernel "
+              f"{'not measured' if prev_ms is None else f'{prev_ms:.4f} ms (max-abs {prev_err:.3e})'}, "
+              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        if not (err <= 5e-3 and same and torch.isfinite(got).all()):
+            raise AssertionError(f"K1 disagrees with its twin at {sr} Hz: max-abs {err}, bitwise equal runs {same}")
         if sr == 16000:
             records["fbank"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, err=err)
 
     # ---- K1′: the EEND log-mel entry vs its plain twin (fp32, log10 units;
     # bar 2e-3 = K1's 5e-3 natural-log bar / ln 10). The main shape is the
     # EEND bench's: batch 32 × one 50 s chunk at 8 kHz; then 16 kHz and
-    # ragged lengths (not a multiple of the shift; shorter than n_fft)
+    # ragged lengths (not a multiple of the shift; shorter than n_fft); two
+    # runs must give the same bits; the previous kernel is timed beside it
     k1p = dict(err=0.0)
     for sr, fs, sh, shape in ((8000, 200, 80, (32, 400000)), (16000, 400, 160, (8, 160000)),
                               (8000, 200, 80, (3, 8123)), (8000, 200, 80, (2, 100)), (16000, 400, 160, (2, 16010))):
         x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
         T = FE.count_frames(shape[1], sh)
         got = K1.logmel_cuda(x, T, fs, sh, sr, 23)
+        again = K1.logmel_cuda(x, T, fs, sh, sr, 23)
         ref = FE.logmel_frames_torch(x, T, fs, sh, sr, 23, mean_norm=False)
         torch.cuda.synchronize()
+        same = torch.equal(got, again)
         err = (got - ref).abs().max().item()
         k1p["err"] = max(k1p["err"], err)
-        line = f"logmel {sr} Hz/{fs}/{sh}/23 {tuple(shape)} -> {tuple(got.shape)}: max-abs {err:.3e} (bar 2e-3)"
+        line = (f"logmel {sr} Hz/{fs}/{sh}/23 {tuple(shape)} -> {tuple(got.shape)}: max-abs {err:.3e} (bar 2e-3), "
+                f"two runs bitwise equal: {same}")
         if shape == (32, 400000):
-            ms = cuda_ms(lambda: K1.logmel_cuda(x, T, fs, sh, sr, 23))
+            ms, prev_ms = paired_ms(lambda: K1.logmel_cuda(x, T, fs, sh, sr, 23),
+                                    (lambda: prev1["logmel"](x, T, fs, sh, sr, 23)) if prev1 else None)
+            eager = cuda_ms(lambda: K1.logmel_cuda(x, T, fs, sh, sr, 23))
+            prev_err = (prev1["logmel"](x, T, fs, sh, sr, 23) - ref).abs().max().item() if prev1 else None
             plain = cuda_ms(lambda: FE.logmel_frames_torch(x, T, fs, sh, sr, 23, mean_norm=False), iters=5)
             bms, by = bound(K1.logmel_work(*shape, fs, sh, sr, 23), H100_FP32_FLOPS)
             k1p.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
-            line += f", kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})"
+            line += (f", kernel {ms:.4f} ms (device; {eager:.4f} ms a call from the host), previous kernel "
+                     f"{'not measured' if prev_ms is None else f'{prev_ms:.4f} ms (max-abs {prev_err:.3e})'}, "
+                     f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
         phase("K1′", line)
-        if not (got.shape == (shape[0], T, 23) and err <= 2e-3 and torch.isfinite(got).all()):
-            raise AssertionError(f"K1′ disagrees with its twin at {sr} Hz {tuple(shape)}: max-abs {err}")
+        if not (got.shape == (shape[0], T, 23) and err <= 2e-3 and same and torch.isfinite(got).all()):
+            raise AssertionError(f"K1′ disagrees with its twin at {sr} Hz {tuple(shape)}: max-abs {err}, "
+                                 f"bitwise equal runs {same}")
     records["logmel"] = k1p
 
     # ---- K2: dense-block kernel vs its plain twin, the three flagship blocks.
