@@ -22,6 +22,16 @@ with the launch counts set to 0 just before and read just after:
 - a Mamba TS-VAD train step at the hermetic recipe's settings: fbank 1,
   selective_scan_fwd_states 8, selective_scan_bwd 8; five steps on one
   fixed batch must lower the loss;
+- the same forward with BiMamba-2 (SSD) backends: fbank 1, cam_block 3,
+  fcm 1 (the SSD scan is plain torch, ops/ssd.py, held on the card to its
+  per-step recurrence at the single backend's shape within JAX's 1e-4);
+  Mamba-2 train steps at the recipe's 8 kHz settings: fbank 1 each, five
+  steps on one fixed batch must lower the loss;
+- streaming TS-VAD at the second hermetic recipe's stream_cfg (8 kHz, d_model
+  256, chunk 16, 4 left chunks, batch 64 × 4 s): the window decode (fbank 1)
+  within 2e-4 of the offline chunk-masked forward (fp32 probabilities), the
+  bf16 decode, offline forward and train steps timed (fbank 1 a step, five
+  steps on one fixed batch must lower the loss);
 - the full-width bf16 EEND forward and `EendEdaModel.infer` (TrainCliConfig
   widths, 8 kHz, batch 32 × one 500-frame chunk): logmel 1 each;
 - EEND and EDA train steps: logmel 1 per step; five steps on one fixed
@@ -39,8 +49,11 @@ generated corpora; and the hermetic TS-VAD recipe at full width on a small
 corpus: `simulate` (a voice pool; train, valid and test mixtures of 3
 speakers at 8 kHz) → `train --family spk` → `export-encoder` →
 `prepare-targets` + `extract-embeddings` per split → `train --family tsvad
---encoder-ckpt` → `infer --threshold-sweep` → `score`, each stage's output
-checked. Each phase prints one line and raises on failure. The
+--encoder-ckpt` → `infer --threshold-sweep` → `score`, then the second
+hermetic recipe's stages 1-2 and 5-6 on the same corpus (`train --family
+tsvad_streaming` and `train --family tsvad` with BiMamba-2 backends and the
+exported encoder, 4 steps each, each followed by `infer --threshold-sweep`
+and `score`), each stage's output checked. Each phase prints one line and raises on failure. The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
@@ -433,6 +446,46 @@ def recipe_chain():
         if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
             raise AssertionError(f"CLI score printed no DER line: {line!r}")
         phase("cli", f"score (hermetic recipe, test): DER/MS/FA/SC {line}")
+
+        # the second hermetic recipe (recipes/hermetic_streaming_and_eda_torch.sh)
+        # on the same corpus, stores and encoder: stages 1-2 (streaming TS-VAD)
+        # and 5-6 (TS-VAD with BiMamba-2 backends) at its settings, 4 steps each
+        stream_sets = ["sample_rate=8000", "n_mels=80", "rs_len=4.0", "d_model=256", "d_ff=1024", "n_layers=2",
+                       "n_heads=4", "streaming_chunk_size=16", "streaming_left_chunks=4"]
+        mamba2_sets = ["sample_rate=8000", "n_mels=80", "encoder_blocks=12,24,16", "rs_len=4.0",
+                       "single_backend_type=mamba2", "multi_backend_type=mamba2", "d_state=64", "expand=2"]
+        steps = ["segment_shift=2.0", "batch_size=64", "num_steps=4", "optimizer=adam", "schedule=poly",
+                 "learning_rate=2e-4", "warmup_steps=400", "bf16=true", "log_every=2", "valid_every=2"]
+        for name, family, sets, extra in (("stream", "tsvad_streaming", stream_sets, []),
+                                          ("tsvad_mamba2", "tsvad", mamba2_sets, ["--encoder-ckpt", enc])):
+            exp = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            cli("train", "--family", family, "--train-dir", os.path.join(tmp, "train", "data"), "--valid-dir",
+                os.path.join(tmp, "valid", "data"), "--exp-dir", exp, "--emb-store",
+                f"{stores['train']},{stores['valid']}", *extra, "--noise-dir", f"{pool}/noise",
+                *[a for kv in sets + steps for a in ("--set", kv)], timeout=900)
+            trains, valids, ckpts = read_metrics(exp)
+            phase("cli", f"train {name} ({family}, bf16, batch 64 x 4 s, 4 steps): {time.perf_counter() - t0:.1f} s; "
+                  f"last log {trains[-1] if trains else None}; valid losses "
+                  f"{[round(r['loss'], 5) for r in valids]}; checkpoints {ckpts}")
+            if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in trains + valids) \
+                    or not ckpts:
+                raise AssertionError(f"CLI train {name} did not log, validate and checkpoint: {trains}, {valids}")
+            hyp = os.path.join(tmp, f"test_hyp_{name}.rttm")
+            t0 = time.perf_counter()
+            out = cli("infer", "--family", family, "--data-dir", test, "--exp-dir", exp, "--emb-store",
+                      stores["test"], "--out", hyp, "--threshold-sweep", "--ref", f"{test}/rttm",
+                      *[a for kv in sets for a in ("--set", kv)])
+            best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", out)
+            n_rttm = sum(fn.startswith(f"test_hyp_{name}.rttm_") for fn in os.listdir(tmp))
+            if not best or n_rttm != 18:
+                raise AssertionError(f"CLI infer {name} wrote {n_rttm} RTTMs:\n{out}")
+            line = cli("score", "--ref", f"{test}/rttm", "--sys", f"{hyp}_{float(best.group(1)):.2f}").strip()
+            line = line.splitlines()[-1] if line else ""
+            if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
+                raise AssertionError(f"CLI score printed no DER line for {name}: {line!r}")
+            phase("cli", f"infer {name} --threshold-sweep (test): {n_rttm} RTTMs, best threshold {best.group(1)}, "
+                  f"DER/MS/FA/SC {line} (4 steps of training), {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -897,6 +950,23 @@ def main() -> int:
     def want(**nonzero):
         return {k: nonzero.get(k, 0) for k in wrappers}
 
+    def fixed_batch_steps(trainer, batch, launches, what):
+        """Five train steps on one batch, each launching exactly `launches`;
+        the loss must fall. → (losses, the launches of a step)."""
+        losses = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            reset_counts()
+            aux = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            got = read_counts()
+            losses.append(aux["loss"].item())
+            if got != launches:
+                raise AssertionError(f"{what} train step {i} launches {got}, want {launches}")
+        if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"the {what} loss did not fall on a fixed batch: {losses}")
+        return losses, got
+
     audios, embss = make_inputs(cfg, 64, 4.0, 8, seed=0, device=dev)
     n_label = int(4.0 * cfg.label_rate)
     with torch.no_grad():
@@ -1011,25 +1081,138 @@ def main() -> int:
     batches = make_train_batches(mcfg, 64, 4.0, 4, seed=2, device=dev)
     # five adam steps at a constant 1e-3 on one fixed batch: the loss must fall
     fixed = Trainer(tmodel, make_tsvad_loss(n_label), TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-3))
-    losses = []
-    for i in range(5):
-        torch.cuda.synchronize()
-        reset_counts()
-        aux = fixed.train_step(batches[0])
-        torch.cuda.synchronize()
-        tlaunches = read_counts()
-        losses.append(aux["loss"].item())
-        if tlaunches != want(fbank=1, selective_scan_fwd_states=8, selective_scan_bwd=8):
-            raise AssertionError(f"train step {i} launches {tlaunches}, want fbank 1, "
-                                 "selective_scan_fwd_states 8, selective_scan_bwd 8")
+    losses, tlaunches = fixed_batch_steps(fixed, batches[0], want(fbank=1, selective_scan_fwd_states=8,
+                                                                  selective_scan_bwd=8), "Mamba")
     phase("train", f"5 steps on one batch (bf16, 64 x 4 s): losses {[round(v, 5) for v in losses]}; "
           f"launches per step {tlaunches}")
-    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
-        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
     tt = train_throughput(recipe_trainer(tmodel, n_label), batches, iters=5, reps=3)
     phase("throughput", f"TS-VAD-Mamba train step (recipe: adam, poly, bf16, batch 64 x 4 s): "
           f"{tt['ms_per_step']:.3f} ms/step (loss checksum {tt['witness']:.6e}, reps {[round(r, 4) for r in tt['reps_s']]})")
     del tmodel, fixed, batches
+
+    # ---- TS-VAD with BiMamba-2 (SSD) backends, the second hermetic recipe's
+    # stages 5-6: d_state 64, expand 2, so 12 heads of P = N = 64; the scan is
+    # plain torch einsums (ops/ssd.py), the JAX scan has no Pallas kernel
+    from speaker_diarization_tpu_torch.ops.ssd import ssd_chunked, ssd_sequential
+
+    m2cfg = TSVADConfig(single_backend_type="mamba2", multi_backend_type="mamba2")
+    m2model = TSVADModel(m2cfg, dtype="bf16", device=dev, seed=0)
+    with torch.no_grad():
+        m2model(audios[0], embss[0], n_label)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        m2logits = m2model(audios[1], embss[1], n_label)
+        torch.cuda.synchronize()
+        m2launches = read_counts()
+        phase("mamba2", f"TS-VAD-Mamba2 bf16 (64, 64000) -> {tuple(m2logits.shape)}; launches {m2launches}")
+        if m2launches != want(fbank=1, cam_block=3, fcm=1):
+            raise AssertionError(f"Mamba-2 path launches {m2launches}, want fbank 1, cam_block 3 and fcm 1")
+        if tuple(m2logits.shape) != (64, 100, 4) or not torch.isfinite(m2logits).all():
+            raise AssertionError("bad logits from the Mamba-2 path")
+        ref = plain_forward(m2model, audios[1], embss[1], n_label)
+        mean_err, scale = (m2logits - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
+        phase("mamba2", f"bf16 logits vs plain twins: mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f}), "
+              f"max-abs {(m2logits - ref).abs().max().item():.3e}")
+        if not mean_err <= 5e-2 * scale:
+            raise AssertionError(f"bf16 Mamba-2 path disagrees with the plain twins: mean-abs {mean_err}")
+        m32 = TSVADModel(m2cfg, dtype="fp32", device=dev, seed=0)
+        got32, ref32 = m32(audios[2][:8], embss[2][:8], n_label), plain_forward(m32, audios[2][:8], embss[2][:8], n_label)
+        err32, scale32 = (got32 - ref32).abs().max().item(), max(1.0, ref32.abs().max().item())
+        phase("mamba2", f"fp32 logits (B=8) vs plain twins: max-abs {err32:.3e} (bar 1e-3 x {scale32:.3f})")
+        if not err32 <= 1e-3 * scale32:
+            raise AssertionError(f"fp32 Mamba-2 forward disagrees with the plain twins: max-abs {err32}")
+        del m32
+        # the port's chunked SSD against its per-step recurrence, fp32, at the
+        # single backend's shape (B·S = 256 rows, T = 100 in two chunks of 64);
+        # JAX's bar (tests/test_ssd.py): |a - b| <= 1e-4 + 1e-4 |b|
+        Hs, Ps, Ns = 12, 64, 64
+        xs = torch.randn((256, 100, Hs, Ps), generator=gen).to(dev)
+        dts = (0.001 + 0.499 * torch.rand((256, 100, Hs), generator=gen)).to(dev)
+        As = -(0.5 + 3.5 * torch.rand(Hs, generator=gen)).to(dev)
+        Bs_, Cs_ = (torch.randn((256, 100, 1, Ns), generator=gen).to(dev) for _ in range(2))
+        Ds = torch.randn(Hs, generator=gen).to(dev)
+        ys, ys_ref = ssd_chunked(xs, dts, As, Bs_, Cs_, Ds), ssd_sequential(xs, dts, As, Bs_, Cs_, Ds)
+        excess = ((ys - ys_ref).abs() - 1e-4 * ys_ref.abs()).max().item()
+        ssd_ms = cuda_ms(lambda: ssd_chunked(xs, dts, As, Bs_, Cs_, Ds), iters=10)
+        ssd_seq_ms = cuda_ms(lambda: ssd_sequential(xs, dts, As, Bs_, Cs_, Ds), iters=2, warmup=1)
+        phase("mamba2", f"ssd_chunked vs ssd_sequential fp32 (256, 100, {Hs}, {Ps}), N {Ns}: max-abs "
+              f"{(ys - ys_ref).abs().max().item():.3e}, max(|a-b| - 1e-4|b|) {excess:.3e} (bar 1e-4), "
+              f"max|y| {ys_ref.abs().max().item():.3f}; chunked {ssd_ms:.4f} ms, sequential {ssd_seq_ms:.4f} ms")
+        if not (excess <= 1e-4 and torch.isfinite(ys).all()):
+            raise AssertionError(f"ssd_chunked disagrees with ssd_sequential on the card: {excess}")
+        del xs, dts, Bs_, Cs_, ys, ys_ref
+    tpm2 = throughput(m2model, audios, embss, n_label, iters=20, reps=3)
+    phase("throughput", f"TS-VAD-Mamba2 bf16 batch 64 x 4 s: {tpm2['ms_per_forward']:.3f} ms/forward, "
+          f"{tpm2['audio_s_per_s']:.1f} audio-s/s (checksum {tpm2['witness']:.6e}, reps "
+          f"{[round(r, 4) for r in tpm2['reps_s']]})")
+    del m2model
+    # train steps at the recipe's 8 kHz settings: CAM++ trains on its module
+    # path, so K1 is the step's only kernel
+    m2cfg8 = dataclasses.replace(m2cfg, sample_rate=8000)
+    tmodel = TSVADModel(m2cfg8, dtype="bf16", device=dev, seed=1)
+    batches = make_train_batches(m2cfg8, 64, 4.0, 4, seed=3, device=dev)
+    fixed = Trainer(tmodel, make_tsvad_loss(n_label), TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-3))
+    losses, m2tlaunches = fixed_batch_steps(fixed, batches[0], want(fbank=1), "Mamba-2")
+    phase("train", f"Mamba-2: 5 steps on one batch (bf16, 64 x 4 s at 8 kHz): losses {[round(v, 5) for v in losses]}; "
+          f"launches per step {m2tlaunches}")
+    tt2 = train_throughput(recipe_trainer(tmodel, n_label), batches, iters=5, reps=3)
+    phase("throughput", f"TS-VAD-Mamba2 train step (recipe: adam, poly, bf16, batch 64 x 4 s at 8 kHz): "
+          f"{tt2['ms_per_step']:.3f} ms/step (loss checksum {tt2['witness']:.6e}, reps "
+          f"{[round(r, 4) for r in tt2['reps_s']]})")
+    del tmodel, fixed, batches
+
+    # ---- streaming TS-VAD at the second hermetic recipe's stream_cfg (8 kHz,
+    # 80 bins, d_model 256, d_ff 1024, 2 layers of 4 heads, chunk 16, 4 left
+    # chunks), batch 64 x 4 s: the window decode `infer` runs, against the
+    # offline chunk-masked forward over the same window padded to whole
+    # chunks (7 chunks, 112 frames), fp32, JAX's bar 2e-4 on probabilities
+    from speaker_diarization_tpu_torch.bench import streaming_model, streaming_throughput
+    from speaker_diarization_tpu_torch.infer.chunked import streaming_window_logits
+    from speaker_diarization_tpu_torch.train.tasks import make_streaming_tsvad_loss
+
+    stmodel32 = streaming_model(dev, seed=0, bf16=False)
+    stcfg = stmodel32.cfg
+    sa, se = make_inputs(stcfg, 64, 4.0, 4, seed=4, device=dev)
+    with torch.no_grad():
+        streaming_window_logits(stmodel32, sa[0], se[0], n_label)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        dec = streaming_window_logits(stmodel32, sa[1], se[1], n_label)
+        torch.cuda.synchronize()
+        dlaunches = read_counts()
+        off = stmodel32(sa[1], se[1], 112)
+        p_dec, p_off = torch.sigmoid(dec), torch.sigmoid(off[:, :n_label])
+        err_p, err_l = (p_dec - p_off).abs().max().item(), (dec - off[:, :n_label]).abs().max().item()
+        whole = stmodel32(sa[1], se[1], n_label)[:, :96]
+        err_w = (p_dec[:, :96] - torch.sigmoid(whole)).abs().max().item()
+    phase("streaming", f"decode fp32 (64, 32000) -> {tuple(dec.shape)} in 7 chunks; launches {dlaunches}; vs the "
+          f"offline forward padded to 112 frames: probabilities max-abs {err_p:.3e} (bar 2e-4), logits {err_l:.3e}; "
+          f"the first 96 frames vs the 100-frame forward {err_w:.3e}")
+    if dlaunches != want(fbank=1):
+        raise AssertionError(f"streaming decode launches {dlaunches}, want fbank 1")
+    if tuple(dec.shape) != (64, 100, 4) or not torch.isfinite(dec).all() or not (err_p <= 2e-4 and err_w <= 2e-4):
+        raise AssertionError(f"the streaming decode disagrees with the offline forward: {err_p}, {err_w}")
+    del stmodel32
+    stmodel = streaming_model(dev, seed=0)
+    tps = streaming_throughput(stmodel, sa, se, n_label, iters=20, reps=3)
+    phase("throughput", f"streaming TS-VAD decode bf16 batch 64 x 4 s at 8 kHz: {tps['ms_per_forward']:.3f} ms/window "
+          f"batch, {tps['audio_s_per_s']:.1f} audio-s/s (checksum {tps['witness']:.6e}, reps "
+          f"{[round(r, 4) for r in tps['reps_s']]})")
+    tpo = throughput(stmodel, sa, se, n_label, iters=20, reps=3)
+    phase("throughput", f"streaming TS-VAD offline chunk-masked forward bf16 batch 64 x 4 s: "
+          f"{tpo['ms_per_forward']:.3f} ms/forward, {tpo['audio_s_per_s']:.1f} audio-s/s (checksum "
+          f"{tpo['witness']:.6e})")
+    batches = make_train_batches(stcfg, 64, 4.0, 4, seed=5, device=dev)
+    fixed = Trainer(stmodel, make_streaming_tsvad_loss(n_label),
+                    TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-3))
+    losses, stlaunches = fixed_batch_steps(fixed, batches[0], want(fbank=1), "streaming")
+    phase("train", f"streaming: 5 steps on one batch (bf16, 64 x 4 s at 8 kHz): losses "
+          f"{[round(v, 5) for v in losses]}; launches per step {stlaunches}")
+    tts = train_throughput(recipe_trainer(stmodel, n_label), batches, iters=5, reps=3)
+    phase("throughput", f"streaming TS-VAD train step (recipe: adam, poly, bf16, batch 64 x 4 s at 8 kHz): "
+          f"{tts['ms_per_step']:.3f} ms/step (loss checksum {tts['witness']:.6e}, reps "
+          f"{[round(r, 4) for r in tts['reps_s']]})")
+    del stmodel, fixed, batches
 
     # ---- the EEND family's main path: full-width bf16 EEND forward and
     # EendEdaModel.infer through K1′ (TrainCliConfig widths, 8 kHz, batch 32
@@ -1100,20 +1283,9 @@ def main() -> int:
         loss = make_eend_loss() if fam == "eend" else make_eda_loss(shuffle_frames=False)
         lr = 1e-4 if fam == "eend" else 3e-6
         fixed = Trainer(fmodel, loss, TrainerConfig(optimizer="adam", schedule="const", learning_rate=lr))
-        elosses = []
-        for i in range(5):
-            torch.cuda.synchronize()
-            reset_counts()
-            aux = fixed.train_step(eb[0])
-            torch.cuda.synchronize()
-            etl = read_counts()
-            elosses.append(aux["loss"].item())
-            if etl != want(logmel=1):
-                raise AssertionError(f"{fam} train step {i} launches {etl}, want logmel 1")
+        elosses, etl = fixed_batch_steps(fixed, eb[0], want(logmel=1), fam)
         phase("train", f"{fam}: 5 adam steps at {lr:g} on one batch (bf16, dropout 0, {EEND_BATCH} x 50 s): losses "
               f"{[round(v, 5) for v in elosses]}; launches per step {etl}")
-        if not (all(math.isfinite(v) for v in elosses) and elosses[-1] < elosses[0]):
-            raise AssertionError(f"the {fam} loss did not fall on a fixed batch: {elosses}")
         tte = train_throughput(eend_recipe_trainer(emodel, fam), eb, iters=3, reps=3)
         phase("throughput", f"{fam} train step (recipe: adam, noam, lr 1.0, warmup 800, clip 5, bf16, batch "
               f"{EEND_BATCH} x 50 s): {tte['ms_per_step']:.3f} ms/step (loss checksum {tte['witness']:.6e}, "
@@ -1132,21 +1304,10 @@ def main() -> int:
     # five adam steps at a constant 1e-4 on one fixed batch: the loss must fall
     fixed = Trainer(smodel, make_spk_loss(sample_rate=scfg.sample_rate),
                     TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
-    slosses = []
-    for i in range(5):
-        torch.cuda.synchronize()
-        reset_counts()
-        aux = fixed.train_step(sb[0])
-        torch.cuda.synchronize()
-        slaunches = read_counts()
-        slosses.append(aux["loss"].item())
-        if slaunches != want(fbank=1):
-            raise AssertionError(f"spk train step {i} launches {slaunches}, want fbank 1")
+    slosses, slaunches = fixed_batch_steps(fixed, sb[0], want(fbank=1), "spk")
     phase("spk", f"5 adam steps at 1e-4 on one batch (CAM++ 12/24/16 + AAM over {scfg.all_n_speakers} speakers, "
           f"margin {scfg.aam_margin}, bf16, {SPK_BATCH} x {SPK_DUR_S} s at 8 kHz): losses "
           f"{[round(v, 5) for v in slosses]}; launches per step {slaunches}")
-    if not (all(math.isfinite(v) for v in slosses) and slosses[-1] < slosses[0]):
-        raise AssertionError(f"the spk loss did not fall on a fixed batch: {slosses}")
     st = train_throughput(spk_recipe_trainer(smodel), sb, iters=5, reps=3)
     phase("throughput", f"spk train step (recipe: adam, poly, lr 1e-3, warmup 200, clip 5, bf16, batch {SPK_BATCH} x "
           f"{SPK_DUR_S} s at 8 kHz): {st['ms_per_step']:.3f} ms/step (loss checksum {st['witness']:.6e}, "

@@ -4,9 +4,17 @@ TS-VAD (the default family) measures what the JAX package's bench.py
 measures, on the card: audio seconds per second of the full-size TS-VAD
 forward (TSVADConfig(), CAM++ 12/24/16, bf16) at batch 64 × 4 s chunks, with
 seeded random weights; `--backend mamba` swaps both backends for BiMamba
-(S6, d_state 64). `--train` instead times train steps at the hermetic
-recipe's settings (batch 64 × 4 s, bf16, adam, poly schedule, lr 2e-4,
-warmup 400, clip 5) on seeded random batches.
+(S6, d_state 64), `--backend mamba2` for BiMamba-2 (SSD: d_state 64,
+expand 2, 12 heads of 64). `--train` instead times train steps at the
+hermetic recipe's settings (batch 64 × 4 s, bf16, adam, poly schedule, lr
+2e-4, warmup 400, clip 5) on seeded random batches.
+
+`--family tsvad_streaming` measures streaming TS-VAD at the second hermetic
+recipe's stream_cfg (recipes/hermetic_streaming_and_eda.sh: 8 kHz, 80 bins,
+d_model 256, d_ff 1024, 2 layers of 4 heads, chunk 16 with 4 left chunks),
+bf16, batch 64 × 4 s: audio seconds per second of the decode `infer` runs
+(each window chunk by chunk through the caches), or with `--train` ms per
+step of the chunk-masked forward and backward at the recipe's settings.
 
 `--family eend|eend_eda` measures the EEND family at the JAX CLI's
 TrainCliConfig widths (d_model 256, 4 layers, 4 heads, d_ff 1024; EDA
@@ -30,7 +38,8 @@ checksum (every step's loss) is chained into one device scalar that is read
 on the host after torch.cuda.synchronize(), so the clock cannot stop before
 every forward or step ran.
 
-    python -m speaker_diarization_tpu_torch.bench [--family tsvad|eend|eend_eda|spk] [--backend mamba] \\
+    python -m speaker_diarization_tpu_torch.bench [--family tsvad|tsvad_streaming|eend|eend_eda|spk] \\
+        [--backend mamba|mamba2] \\
         [--train] [--profile profile.txt]
 
 `--profile` also records a torch.profiler window of a few forwards (train
@@ -192,14 +201,40 @@ def make_train_batches(cfg: TSVADConfig, batch: int, chunk_s: float, n_bufs: int
     ]
 
 
-def recipe_trainer(model: TSVADModel, n_label: int, seed: int = 0):
-    """A Trainer with the hermetic recipe's TS-VAD optimisation settings."""
-    from .train.tasks import make_tsvad_loss
+def recipe_trainer(model, n_label: int, seed: int = 0):
+    """A Trainer with the hermetic recipes' TS-VAD optimisation settings
+    (the same for TSVADModel and StreamingTSVADModel)."""
+    from .models.streaming_tsvad import StreamingTSVADModel
+    from .train.tasks import make_streaming_tsvad_loss, make_tsvad_loss
     from .train.trainer import Trainer, TrainerConfig
 
     tcfg = TrainerConfig(optimizer="adam", schedule="poly", learning_rate=2e-4, warmup_steps=400,
                          total_steps=4000, grad_clip_norm=5.0, seed=seed)
-    return Trainer(model, make_tsvad_loss(n_label), tcfg)
+    loss = make_streaming_tsvad_loss if isinstance(model, StreamingTSVADModel) else make_tsvad_loss
+    return Trainer(model, loss(n_label), tcfg)
+
+
+def streaming_model(device, seed: int = 0, bf16: bool = True):
+    """Streaming TS-VAD at the second hermetic recipe's stream_cfg, seeded random weights."""
+    from .cli.main import TrainCliConfig, build_model
+
+    cfg = TrainCliConfig(family="tsvad_streaming", bf16=bf16, seed=seed, sample_rate=8000, n_mels=80, rs_len=CHUNK_S,
+                         d_model=256, d_ff=1024, n_layers=2, n_heads=4, streaming_chunk_size=16,
+                         streaming_left_chunks=4)
+    return build_model(cfg, device)
+
+
+@torch.no_grad()
+def streaming_throughput(model, audios, embss, n_label: int, iters: int = 20, reps: int = 3) -> Dict[str, float]:
+    """Median over `reps` of `iters` pipelined window decodes on distinct inputs."""
+    from .infer.chunked import streaming_window_logits
+
+    dt, witness, dts = _pipelined(
+        lambda i: torch.sigmoid(streaming_window_logits(model, audios[i % len(audios)], embss[i % len(embss)],
+                                                        n_label)).sum(), audios[0].device, iters, reps)
+    B, N = audios[0].shape
+    audio_s = B * N / model.cfg.sample_rate
+    return dict(ms_per_forward=1e3 * dt / iters, audio_s_per_s=audio_s * iters / dt, witness=witness, reps_s=dts)
 
 
 def train_throughput(trainer, batches, iters: int = 5, reps: int = 3) -> Dict[str, float]:
@@ -257,9 +292,9 @@ def embed_throughput(encoder, audios, iters: int = 10, reps: int = 3) -> Dict[st
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--family", choices=["tsvad", "eend", "eend_eda", "spk"], default="tsvad")
-    ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add"], default="transformer",
-                    help="tsvad: both backends")
+    ap.add_argument("--family", choices=["tsvad", "tsvad_streaming", "eend", "eend_eda", "spk"], default="tsvad")
+    ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add", "mamba2", "mamba2_add"],
+                    default="transformer", help="tsvad: both backends")
     ap.add_argument("--train", action="store_true", help="time train steps instead of forwards")
     ap.add_argument("--profile", help="write a profiler table of a few forwards (train steps) to this file")
     args = ap.parse_args(argv)
@@ -281,6 +316,23 @@ def main(argv=None) -> int:
 
             def forward():
                 return model(audios[0], embss[0], T)
+    elif args.family == "tsvad_streaming":
+        from .infer.chunked import streaming_window_logits
+
+        model = streaming_model("cuda")
+        cfg = model.cfg
+        T = int(CHUNK_S * cfg.label_rate)
+        meta.update(batch=BATCH, chunk_s=CHUNK_S, chunk_size=cfg.chunk_size, left_chunks=cfg.num_left_chunks)
+        if args.train:
+            trainer = recipe_trainer(model, T)
+            batches = make_train_batches(cfg, BATCH, CHUNK_S, 4, 0, model.device)
+            res = train_throughput(trainer, batches)
+        else:
+            audios, embss = make_inputs(cfg, BATCH, CHUNK_S, 8, seed=0, device=model.device)
+            res = streaming_throughput(model, audios, embss, T)
+
+            def forward():
+                return streaming_window_logits(model, audios[0], embss[0], T)
     elif args.family == "spk":
         model, cfg = spk_model("cuda", bf16=args.train)
         if args.train:

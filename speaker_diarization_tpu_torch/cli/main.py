@@ -18,20 +18,26 @@
         --train-dir D --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
         [--noise-dir N] [--rir-dir R] [--encoder-ckpt enc.npz] [--resume] \\
         [--set key=value ...] [--config train.json] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli train --family tsvad_streaming \\
+        --train-dir D --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
+        [--noise-dir N] [--rir-dir R] [--resume] [--set key=value ...] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli infer [--family eend|eend_eda] \\
         --data-dir DIR --exp-dir X [--step S] [--avg-last K] --out hyp.rttm \\
         [--set key=value ...] [--attractor-threshold 0.5] \\
         [--threshold-sweep --ref ref.rttm] [--device cpu]
-    python -m speaker_diarization_tpu_torch.cli infer --family tsvad \\
+    python -m speaker_diarization_tpu_torch.cli infer --family tsvad|tsvad_streaming \\
         --data-dir DIR --emb-store EMB.npz (--exp-dir X [--step S] [--avg-last K] \\
         | --params PARAMS.npz [--config tsvad.json]) --out hyp.rttm \\
         [--set key=value ...] [--rs-len 4] [--threshold-sweep --ref ref.rttm] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm
 
-Ported families: eend, eend_eda (transformer encoder), tsvad, and spk
-(speaker-encoder pretraining, exported by `export-encoder` in the JAX
-package's npz format for `extract-embeddings` and `train --family tsvad
---encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
+Ported families: eend, eend_eda (transformer encoder), tsvad (transformer,
+mamba, mamba_add, mamba2 and mamba2_add backends through `--set
+single_backend_type=… --set multi_backend_type=…`), tsvad_streaming
+(its own conv front-end, chunk-masked training, chunk-by-chunk decode of
+each window), and spk (speaker-encoder pretraining, exported by
+`export-encoder` in the JAX package's npz format for `extract-embeddings`
+and `train --family tsvad --encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
 package's CLI (`TrainCliConfig`, cli/main.py:33-110). `train` writes torch checkpoints
 and its config (train_config.json) into --exp-dir; `infer --exp-dir`
 rebuilds the model from that config (its family unless --family is given,
@@ -52,8 +58,9 @@ import sys
 
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
-FAMILIES = ("eend", "eend_eda", "tsvad", "spk")  # the ported ones
-INFER_FAMILIES = ("eend", "eend_eda", "tsvad")  # spk exports an encoder instead
+FAMILIES = ("eend", "eend_eda", "tsvad", "tsvad_streaming", "spk")  # the ported ones
+INFER_FAMILIES = ("eend", "eend_eda", "tsvad", "tsvad_streaming")  # spk exports an encoder instead
+TSVAD_FAMILIES = ("tsvad", "tsvad_streaming")  # windows with target-speaker embeddings
 
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
@@ -67,7 +74,7 @@ class TrainCliConfig:
     """The EEND and TS-VAD fields of the JAX CLI's TrainCliConfig, same
     names and defaults (the family defaults to tsvad here)."""
 
-    family: str = "tsvad"  # eend | eend_eda | tsvad | spk
+    family: str = "tsvad"  # eend | eend_eda | tsvad | tsvad_streaming | spk
     # model
     n_speakers: int = 2  # tsvad: > 2 sets max_num_speaker, else 4
     max_attractors: int = 15  # eend_eda: attractors decoded at inference
@@ -91,10 +98,14 @@ class TrainCliConfig:
     rs_len: float = 4.0
     segment_shift: float = 2.0
     speech_encoder_type: str = "campplus"
-    single_backend_type: str = "transformer"
+    single_backend_type: str = "transformer"  # transformer | mamba | mamba_add | mamba2 | mamba2_add
     multi_backend_type: str = "transformer"
     d_state: int = 64
     expand: int = 2
+    # tsvad_streaming (reference ts_vad2_streaming: static_chunk_size 64
+    # @100 Hz = 16 frames @25 Hz; num_left_chunks history window)
+    streaming_chunk_size: int = 16
+    streaming_left_chunks: int = 4
     encoder_blocks: str = ""  # "12,24,16" = reference CAM++
     freeze_encoder: bool = False
     enhancer: str = ""  # not ported: a non-empty value raises (ROADMAP item 10)
@@ -151,6 +162,24 @@ def tsvad_config(cfg: TrainCliConfig):
         d_state=cfg.d_state,
         expand=cfg.expand,
         encoder_block_layers=blocks,
+    )
+
+
+def streaming_config(cfg: TrainCliConfig):
+    """TrainCliConfig → StreamingTSVADConfig, as the JAX CLI's _build_model does."""
+    from ..models.streaming_tsvad import StreamingTSVADConfig
+
+    return StreamingTSVADConfig(
+        max_num_speaker=cfg.n_speakers if cfg.n_speakers > 2 else 4,
+        d_model=cfg.d_model,
+        d_ff=cfg.d_ff,
+        n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers,
+        dropout=cfg.dropout,
+        sample_rate=cfg.sample_rate,
+        feat_dim=cfg.n_mels if cfg.n_mels != 23 else 80,
+        chunk_size=cfg.streaming_chunk_size,
+        num_left_chunks=cfg.streaming_left_chunks,
     )
 
 
@@ -215,6 +244,10 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
         from ..models.tsvad import TSVADModel
 
         return TSVADModel(tsvad_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "tsvad_streaming":
+        from ..models.streaming_tsvad import StreamingTSVADModel
+
+        return StreamingTSVADModel(streaming_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
     if cfg.family == "spk":
         from ..models.spk_embed import SpeakerClassifier
 
@@ -232,17 +265,25 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
 
 
 def _tsvad_data(args, cfg: TrainCliConfig, model):
-    """TS-VAD: (loss_fn, train iterator factory, valid iterator factory, sizes)."""
+    """TS-VAD and streaming TS-VAD: (loss_fn, train iterator factory, valid
+    iterator factory, sizes). The datasets give the model's slot count."""
     from ..data.tsvad_dataset import TSVADChunkDataset, tsvad_batch_iterator
     from ..infer.embeddings import EmbeddingStore
-    from ..train.tasks import make_tsvad_loss
+    from ..train.tasks import make_streaming_tsvad_loss, make_tsvad_loss
 
     if not args.emb_store:
-        raise SystemExit("train --family tsvad needs --emb-store")
+        raise SystemExit(f"train --family {cfg.family} needs --emb-store")
     if "," in args.train_dir:
-        raise SystemExit("several --train-dir corpora are not ported yet for tsvad; pass one directory")
-    if args.encoder_ckpt:
-        _load_encoder(model, args.encoder_ckpt)
+        raise SystemExit(f"several --train-dir corpora are not ported yet for {cfg.family}; pass one directory")
+    T = int(cfg.rs_len * 25)
+    if cfg.family == "tsvad_streaming":
+        if args.encoder_ckpt:
+            raise SystemExit("tsvad_streaming has its own conv front-end and no CAM++: drop --encoder-ckpt")
+        loss_fn = make_streaming_tsvad_loss(T)
+    else:
+        if args.encoder_ckpt:
+            _load_encoder(model, args.encoder_ckpt)
+        loss_fn = make_tsvad_loss(T, cfg.freeze_encoder)
     store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
     common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=model.cfg.max_num_speaker,
                   enhancer=cfg.enhancer or None)
@@ -252,7 +293,7 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
     if args.valid_dir:
         valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=cfg.rs_len, is_train=False, **common)
     return (
-        make_tsvad_loss(int(cfg.rs_len * 25), cfg.freeze_encoder),
+        loss_fn,
         lambda ep: tsvad_batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
         (lambda: tsvad_batch_iterator(valid_ds, cfg.batch_size, False)) if valid_ds else None,
         (len(train_ds), len(valid_ds) if valid_ds else 0),
@@ -322,7 +363,7 @@ def cmd_train(args) -> int:
     if cfg.family == "spk":  # the class count comes from the corpus
         cfg, loss_fn, make_train, make_valid, sizes = _spk_data(args, cfg)
         model = build_model(cfg, dev)
-    elif cfg.family == "tsvad":
+    elif cfg.family in TSVAD_FAMILIES:
         model = build_model(cfg, dev)
         loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
     else:
@@ -382,13 +423,15 @@ def _model_from_exp_dir(args, dev):
 
 
 def _tsvad_probs(args, model, rs_len: float):
-    """Overlap-voted TS-VAD probabilities → ({rec: (T, S)}, frame seconds, {rec: speaker names})."""
+    """Overlap-voted TS-VAD probabilities → ({rec: (T, S)}, frame seconds,
+    {rec: speaker names}); a streaming model decodes each window chunk by chunk."""
     from ..data.tsvad_dataset import TSVADChunkDataset
-    from ..infer.chunked import make_tsvad_predict, tsvad_infer_dataset
+    from ..infer.chunked import make_streaming_window_predict, make_tsvad_predict, tsvad_infer_dataset
     from ..infer.embeddings import EmbeddingStore
+    from ..models.streaming_tsvad import StreamingTSVADModel
 
     if not args.emb_store:
-        raise SystemExit("infer --family tsvad needs --emb-store")
+        raise SystemExit("TS-VAD inference needs --emb-store")
     cfg = model.cfg
     store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
     ds = TSVADChunkDataset(
@@ -396,7 +439,8 @@ def _tsvad_probs(args, model, rs_len: float):
         max_speakers=cfg.max_num_speaker, rate=cfg.sample_rate, label_rate=cfg.label_rate,
     )
     T = int(rs_len * cfg.label_rate)
-    probs = tsvad_infer_dataset(make_tsvad_predict(model, T), ds, batch_size=BATCH_SIZE)
+    make = make_streaming_window_predict if isinstance(model, StreamingTSVADModel) else make_tsvad_predict
+    probs = tsvad_infer_dataset(make(model, T), ds, batch_size=BATCH_SIZE)
     return probs, 1.0 / cfg.label_rate, ds.rec_speakers  # real speaker names in the RTTM
 
 
@@ -435,7 +479,7 @@ def cmd_infer(args) -> int:
         model.load_state_dict(tsvad_from_flax(load_flax_npz(args.params)))
         cfg, rs_len = TrainCliConfig(), 4.0
         logging.info("loaded %s on %s (%s)", args.params, model.device, model.dtype)
-    if cfg.family == "tsvad":
+    if cfg.family in TSVAD_FAMILIES:
         probs, fs, spk_names = _tsvad_probs(args, model, args.rs_len or rs_len)
     else:
         probs, fs, spk_names = _eend_probs(args, model, cfg)
@@ -634,8 +678,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Kaldi data dir (EEND families: a comma list trains jointly; spk: utt2spk required)")
     t.add_argument("--valid-dir")
     t.add_argument("--exp-dir", required=True)
-    t.add_argument("--emb-store", help="tsvad: target-speaker embedding npz (comma list merges)")
-    t.add_argument("--encoder-ckpt", help="pretrained CAM++: export-encoder .npz or a wespeaker torch state dict")
+    t.add_argument("--emb-store", help="tsvad, tsvad_streaming: target-speaker embedding npz (comma list merges)")
+    t.add_argument("--encoder-ckpt", help="tsvad: pretrained CAM++, an export-encoder .npz or a wespeaker torch "
+                                          "state dict")
     t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation")
     t.add_argument("--rir-dir", help="Kaldi dir of RIR wavs for reverberation")
     t.add_argument("--max-to-keep", type=int, default=5)
@@ -650,7 +695,7 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--set", action="append", default=[],
                    help="key=value override of the TSVADConfig (--params) or of the run's TrainCliConfig (--exp-dir)")
     i.add_argument("--data-dir", required=True)
-    i.add_argument("--emb-store", help="tsvad: target-speaker embedding npz (comma list merges)")
+    i.add_argument("--emb-store", help="tsvad, tsvad_streaming: target-speaker embedding npz (comma list merges)")
     i.add_argument("--params", help=_PARAMS_HELP)
     i.add_argument("--exp-dir", help="a `train` run: restore its best (else latest) checkpoint")
     i.add_argument("--step", type=int, help="with --exp-dir: restore this step")

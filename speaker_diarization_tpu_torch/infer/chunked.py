@@ -7,7 +7,9 @@ Counterpart of speaker_diarization_tpu/infer/chunked.py:
   masked, per-chunk probabilities concatenated over the recording;
 - `tsvad_infer_dataset`: overlapped TS-VAD windows with per-frame
   probability voting (reference ts_vad2/model.py:957-968 + infer.py:86-94).
-`make_eend_predict` / `make_tsvad_predict` wrap a model as the predictor.
+`make_eend_predict` / `make_tsvad_predict` wrap a model as the predictor;
+`make_streaming_window_predict` decodes each TS-VAD window chunk by chunk
+through a streaming model's caches.
 """
 
 from __future__ import annotations
@@ -141,5 +143,46 @@ def make_tsvad_predict(model, n_label_frames: int) -> Callable[[np.ndarray, np.n
         a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
         e = torch.from_numpy(np.ascontiguousarray(embs, np.float32)).to(dev)
         return torch.sigmoid(model(a, e, n_label_frames)).cpu().numpy()
+
+    return predict
+
+
+def streaming_window_logits(model, audio: torch.Tensor, embs: torch.Tensor, n_label_frames: int) -> torch.Tensor:
+    """Each window of `audio` (B, N) decoded chunk by chunk through a
+    streaming model's caches from a fresh state → logits (B, n_label_frames,
+    S), on the model's device. The mix is cut to n_label_frames and
+    zero-padded to whole chunks; the JAX `lax.scan` over chunks is a loop
+    (7 chunks for a 4 s window at chunk 16)."""
+    chunk = model.cfg.chunk_size
+    n_chunks = -(-n_label_frames // chunk)
+    mix = model.encode_frames(audio)[:, :n_label_frames]
+    mix = torch.nn.functional.pad(mix, (0, 0, 0, n_chunks * chunk - mix.shape[1]))
+    state = model.streaming_state(mix.shape[0])
+    outs = []
+    for c in range(n_chunks):
+        logits, state = model.streaming_step_mix(mix[:, c * chunk : (c + 1) * chunk], embs, state)
+        outs.append(logits)
+    return torch.cat(outs, dim=1)[:, :n_label_frames]
+
+
+def make_streaming_window_predict(model, n_label_frames: int) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
+    """Window-wise streaming TS-VAD predictor for `tsvad_infer_dataset`.
+
+    Counterpart of the JAX make_streaming_window_predict (reference
+    run_ts_vad2_streaming.sh:70-128, ts_vad2_streaming/model.py:368-462):
+    each overlapped rs_len window is decoded chunk by chunk from a fresh
+    state (`streaming_window_logits`), and the windows are then
+    overlap-voted. Decoding whole recordings in one pass would push the
+    absolute positions far past the trained window.
+
+    (audio (B, N), embs (B, S, D)) numpy → sigmoid probabilities (B, T25, S) numpy.
+    """
+    dev = model.device
+
+    @torch.no_grad()
+    def predict(audio: np.ndarray, embs: np.ndarray) -> np.ndarray:
+        a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
+        e = torch.from_numpy(np.ascontiguousarray(embs, np.float32)).to(dev)
+        return torch.sigmoid(streaming_window_logits(model, a, e, n_label_frames)).cpu().numpy()
 
     return predict

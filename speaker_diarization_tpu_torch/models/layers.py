@@ -8,6 +8,7 @@ fp32 and casts back, as flax's BatchNorm does for a bf16 input.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -85,7 +86,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     scale 1 + N(0, 0.01), shift N(0, 0.01), running mean N(0, 0.01) and
     running variance 1 + U(0, 0.2), so folded statistics are not trivial.
     Mamba's A_log and D take Mamba's own init (log 1..N per channel, ones),
-    as in the JAX package. Draws on the CPU from `generator`, in state-dict
+    as in the JAX package; Mamba-2's per-head A_log and dt_bias take the JAX
+    Mamba2Layer's draws (A uniform in [1, 16]; softplus(dt_bias) log-uniform
+    in [1e-3, 1e-1]). Draws on the CPU from `generator`, in state-dict
     order, then copies.
     """
     with torch.no_grad():
@@ -95,7 +98,12 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 t.zero_()
                 continue
             shape = tuple(t.shape)
-            if leaf == "A_log":
+            if leaf == "A_log" and t.dim() == 1:  # Mamba-2: one A per head
+                v = torch.log(1.0 + 15.0 * torch.rand(shape, generator=generator))
+            elif leaf == "dt_bias":
+                u = math.log(1e-3) + (math.log(1e-1) - math.log(1e-3)) * torch.rand(shape, generator=generator)
+                v = torch.log(torch.expm1(torch.exp(u)))
+            elif leaf == "A_log":
                 v = torch.log(torch.arange(1, shape[1] + 1, dtype=torch.float32)).repeat(shape[0], 1)
             elif leaf == "D":
                 v = torch.ones(shape)

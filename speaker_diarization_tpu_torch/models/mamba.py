@@ -14,18 +14,33 @@ module's numerics and parameter names:
 - BiMambaBlock: pre-LayerNorm residual layers merged by concat + linear or
   by add, and a final LayerNorm (eps 1e-6, flax's default).
 
-Mamba2Layer/BiMamba2Block (the SSD scan) are not ported yet and raise.
+`Mamba2Layer` / `BiMamba2Block` (JAX mamba.py:110-223; reference
+`mamba_ssm.modules.mamba2.Mamba2` as stacked by ts_vad2/mamba.py:150-233):
+
+- in_proj → [z | xBC | dt]; a causal depthwise conv over xBC (flax WIO
+  kernel (d_conv, 1, d_xbc) held as `conv.weight` (d_xbc, 1, d_conv), left
+  pad d_conv − 1, the fp32 bias added after the conv) → SiLU → x, B, C;
+- dt = softplus(dt + dt_bias) in fp32, A = −exp(A_log) one scalar per head,
+  then the chunked SSD scan (ops/ssd.py, plain torch ops: the JAX scan has
+  no Pallas kernel) on fp32 inputs, plus D·x;
+- the gated RMSNorm: y·SiLU(z), then RMSNorm (eps 1e-6 as flax's, a scale
+  and no bias, normalised in fp32), then out_proj;
+- BiMamba2Block: pre-RMSNorm residual layers, the reverse direction on the
+  flipped sequence, merged by concat + linear or by add, a final RMSNorm.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
 
 from ..ops.mamba_scan import selective_scan_auto
+from ..ops.ssd import ssd_chunked
 from .layers import Linear
-from .transformer import LayerNorm
+from .transformer import LN_EPS, LayerNorm
 
 
 class MambaLayer(nn.Module):
@@ -90,17 +105,76 @@ class BiMambaBlock(nn.Module):
         return self.norm_out(h)
 
 
-class Mamba2Layer(nn.Module):
-    """Mamba-2 mixer on the chunked SSD scan: not ported yet."""
+class RMSNorm(nn.Module):
+    """flax nn.RMSNorm: a scale, no bias, eps 1e-6, normalised in fp32 and
+    cast back to the input's dtype."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, d: int):
         super().__init__()
-        raise NotImplementedError("Mamba2Layer (SSD scan) is not ported to PyTorch yet (ROADMAP item 7)")
+        self.weight = nn.Parameter(torch.ones(d))
+
+    def forward(self, x):
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + LN_EPS) * self.weight).to(x.dtype)
+
+
+class Mamba2Layer(nn.Module):
+    """(B, T, d_model) → (B, T, d_model), causal, computed in x.dtype with
+    the scan in fp32. Seeded weights come from `layers.init_weights_` (the
+    JAX draws for A_log and dt_bias); until then A_log, dt_bias and D hold
+    deterministic values inside the JAX init ranges."""
+
+    def __init__(self, d_model: int, d_state: int = 64, d_conv: int = 4, expand: int = 2, headdim: int = 64):
+        super().__init__()
+        d_inner = expand * d_model
+        if d_inner % headdim:
+            raise ValueError(f"d_inner {d_inner} must be a multiple of headdim {headdim}")
+        H = d_inner // headdim
+        self.d_inner, self.d_state, self.d_conv, self.headdim = d_inner, d_state, d_conv, headdim
+        self.d_xbc = d_inner + 2 * d_state  # x and one group of B and C (JAX ngroups 1)
+        self.in_proj = Linear(d_model, d_inner + self.d_xbc + H, bias=False)
+        self.conv = nn.Conv1d(self.d_xbc, self.d_xbc, d_conv, groups=self.d_xbc)
+        # softplus(dt_bias) spans [1e-3, 1e-1] and A spans [1, 16], the JAX init ranges
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), H))
+        self.dt_bias = nn.Parameter(dt + torch.log(-torch.expm1(-dt)))
+        self.A_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, H)))
+        self.D = nn.Parameter(torch.ones(H))
+        self.norm = RMSNorm(d_inner)
+        self.out_proj = Linear(d_inner, d_model, bias=False)
+
+    def forward(self, x):
+        cdt = x.dtype
+        B, T, _ = x.shape
+        H, P, N = self.d_inner // self.headdim, self.headdim, self.d_state
+        z, xbc, dt = self.in_proj(x).split([self.d_inner, self.d_xbc, H], dim=-1)
+        xbc = Fn.pad(xbc.transpose(1, 2), (self.d_conv - 1, 0))
+        xbc = Fn.conv1d(xbc, self.conv.weight.to(cdt), None, groups=self.d_xbc).transpose(1, 2)
+        xbc = Fn.silu(xbc.float() + self.conv.bias)  # fp32, as the JAX bias add promotes
+        xi, Bm, Cm = xbc.split([self.d_inner, N, N], dim=-1)
+        dt = Fn.softplus(dt.float() + self.dt_bias)
+        y = ssd_chunked(xi.reshape(B, T, H, P), dt, -torch.exp(self.A_log), Bm[:, :, None], Cm[:, :, None], self.D)
+        y = y.reshape(B, T, self.d_inner).to(cdt) * Fn.silu(z)
+        return self.out_proj(self.norm(y))
 
 
 class BiMamba2Block(nn.Module):
-    """Bidirectional Mamba-2 stack: not ported yet."""
+    """Residual stack of bidirectional Mamba-2 layers; output (B, T, d_model).
 
-    def __init__(self, *args, **kwargs):
+    merge 'concat' (fwd ‖ bwd → linear back to d_model) or 'add'.
+    """
+
+    def __init__(self, d_model: int, n_layer: int = 2, d_state: int = 64, d_conv: int = 4, expand: int = 2,
+                 headdim: int = 64, merge: str = "concat"):
         super().__init__()
-        raise NotImplementedError("BiMamba2Block (SSD scan) is not ported to PyTorch yet (ROADMAP item 7)")
+        if merge not in ("concat", "add"):
+            raise ValueError(f"merge must be 'concat' or 'add', got {merge!r}")
+        self.n_layer, self.merge = n_layer, merge
+        for i in range(n_layer):
+            self.add_module(f"norm_{i}", RMSNorm(d_model))
+            self.add_module(f"fwd_{i}", Mamba2Layer(d_model, d_state, d_conv, expand, headdim))
+            self.add_module(f"bwd_{i}", Mamba2Layer(d_model, d_state, d_conv, expand, headdim))
+            if merge == "concat":
+                self.add_module(f"merge_{i}", Linear(2 * d_model, d_model, bias=False))
+        self.norm_out = RMSNorm(d_model)
+
+    forward = BiMambaBlock.forward

@@ -1,8 +1,9 @@
 """Post-norm transformer encoder, PyTorch.
 
 Counterpart of speaker_diarization_tpu/models/transformer.py
-(`sinusoidal_position_encoding`, `make_padding_mask`, `FeedForward`,
-`TransformerEncoderLayer`, `TransformerEncoder`) with the flax numerics:
+(`sinusoidal_position_encoding`, `make_padding_mask`, `make_chunk_mask`,
+`FeedForward`, `TransformerEncoderLayer`, `TransformerEncoder`) with the
+flax numerics:
 
 - attention is per-head q/k/v projections, q scaled by 1/sqrt(head_dim),
   softmax in the compute dtype, written as plain matmuls (the JAX layer is
@@ -109,6 +110,18 @@ def make_padding_mask(frame_mask: torch.Tensor) -> torch.Tensor:
     """(B, T) validity → (B, 1, T, T) attention mask (True = attend)."""
     m = frame_mask.bool()
     return m[:, None, :, None] & m[:, None, None, :]
+
+
+def make_chunk_mask(T: int, chunk_size: int, num_left_chunks: int = -1, device=None) -> torch.Tensor:
+    """WeNet-style chunk attention mask (reference ts_vad2_streaming/mask.py:137):
+    a frame attends within its chunk and to `num_left_chunks` earlier chunks
+    (-1: all history). → (1, 1, T, T) bool, True = attend."""
+    chunk_of = torch.arange(T, device=device) // chunk_size
+    ci, cj = chunk_of[:, None], chunk_of[None, :]
+    ok = cj <= ci
+    if num_left_chunks >= 0:
+        ok = ok & (cj >= ci - num_left_chunks)
+    return ok[None, None]
 
 
 class TransformerEncoder(nn.Module):

@@ -1,16 +1,16 @@
 """TS-VAD: target-speaker voice activity detection — the DER flagship.
 
 Counterpart of speaker_diarization_tpu/models/tsvad.py (reference
-ts_vad2/model.py:179-970), with the CAM++ speech encoder and transformer or
-BiMamba (S6) backends:
+ts_vad2/model.py:179-970), with the CAM++ speech encoder and transformer,
+BiMamba (S6) or BiMamba-2 (SSD) backends:
 
   audio (B, N) → kaldi fbank 80d @100 Hz (mean-norm; K1 kernel on CUDA)
   → CAM++ frame encoder (512d @50 Hz; fused path, K2 kernel per block)
   → Conv k5 s2 + BN + ReLU → 192d @25 Hz ("mix embeddings")
   → per speaker i<4: concat[target_emb_i ‖ mix] (384d) → +sinusoidal PE
-    → shared 2-layer post-norm transformer or BiMamba ("single backend")
+    → shared 2-layer post-norm transformer, BiMamba or BiMamba-2 ("single backend")
   → stack speakers, Conv k5 s1 (4·384→384) + BN + ReLU ("backend down")
-  → (+PE) → 2-layer transformer or BiMamba ("multi backend") → Linear
+  → (+PE) → 2-layer transformer, BiMamba or BiMamba-2 ("multi backend") → Linear
   → (B, T25, 4) logits
 
 Speakers are folded into the batch for the shared single backend, as in the
@@ -34,7 +34,7 @@ from ..ops import features as F
 from ..utils.device import resolve_device, resolve_dtype
 from .campplus import CAMPPlus
 from .layers import BatchNorm, Conv1d, Linear, dropout, init_weights_
-from .mamba import BiMambaBlock
+from .mamba import BiMamba2Block, BiMambaBlock
 from .transformer import TransformerEncoderLayer, sinusoidal_position_encoding
 
 
@@ -133,8 +133,8 @@ class TSVADModel(nn.Module):
         if c.speech_encoder_type != "campplus":
             _not_ported(f"speech_encoder_type={c.speech_encoder_type!r}", "12 (encoder zoo)")
         for kind in (c.single_backend_type, c.multi_backend_type):
-            if kind not in ("transformer", "mamba", "mamba_add"):
-                _not_ported(f"backend {kind!r}", "7 (Mamba2/SSD backends)" if kind.startswith("mamba2") else "9-10")
+            if kind not in ("transformer", "mamba", "mamba_add", "mamba2", "mamba2_add"):
+                _not_ported(f"backend {kind!r}", "9-10")
         with torch.device("meta"):
             self.speech_encoder = CAMPPlus(
                 feat_dim=c.feat_dim,
@@ -166,9 +166,10 @@ class TSVADModel(nn.Module):
                 c.transformer_embed_dim, c.num_transformer_layer, c.num_attention_head,
                 c.transformer_ffn_embed_dim, c.dropout,
             )
-        return BiMambaBlock(
+        block = BiMamba2Block if kind.startswith("mamba2") else BiMambaBlock
+        return block(
             c.transformer_embed_dim, c.num_transformer_layer, c.d_state, expand=c.expand,
-            merge="add" if kind == "mamba_add" else "concat",
+            merge="add" if kind.endswith("_add") else "concat",
         )
 
     @property

@@ -3,7 +3,9 @@
 Counterpart of speaker_diarization_tpu/train/tasks.py: EEND PIT-BCE
 (`make_eend_loss`, tasks.py:20-37), EEND-EDA PIT + attractor existence
 (`make_eda_loss`, tasks.py:40-77), TS-VAD per-speaker BCE
-(`make_tsvad_loss`, tasks.py:241-271) and the speaker encoder's AAM-softmax
+(`make_tsvad_loss`, tasks.py:241-271), streaming TS-VAD's BCE on the
+chunk-masked forward (`make_streaming_tsvad_loss`, tasks.py:335-357) and the
+speaker encoder's AAM-softmax
 cross-entropy (`make_spk_loss`, tasks.py:430-456). The other families'
 losses come with their models.
 """
@@ -26,6 +28,20 @@ def make_tsvad_loss(n_label_frames: int, freeze_encoder: bool = False):
     def loss_fn(model, batch, generator, train):
         logits = model(batch["audio"], batch["target_embs"], n_label_frames,
                        freeze_encoder=freeze_encoder and train, generator=generator)
+        loss = L.standard_bce(logits, batch["labels"])
+        stats = M.diarization_error_stats(logits, batch["labels"])
+        return loss, {"frame_der": M.der_from_stats(stats)}
+
+    return loss_fn
+
+
+def make_streaming_tsvad_loss(n_label_frames: int):
+    """loss_fn for StreamingTSVADModel: per-speaker BCE on the chunk-masked
+    offline forward (reference ts_vad2_streaming training with a static
+    chunk mask); aux carries the frame DER. The model has no BatchNorm."""
+
+    def loss_fn(model, batch, generator, train):
+        logits = model(batch["audio"], batch["target_embs"], n_label_frames, generator=generator)
         loss = L.standard_bce(logits, batch["labels"])
         stats = M.diarization_error_stats(logits, batch["labels"])
         return loss, {"frame_der": M.der_from_stats(stats)}

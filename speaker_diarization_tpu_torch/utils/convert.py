@@ -16,6 +16,8 @@ utils/torch_convert.py):
   LayerNorm scale/bias                   → weight/bias
   Mamba conv_kernel (d_conv, 1, d_inner) → conv.weight (d_inner, 1, d_conv)
   Mamba conv_bias, A_log, D              → conv.bias, A_log, D
+  Mamba-2 conv_kernel (d_conv, 1, d_xbc)  → conv.weight (d_xbc, 1, d_conv);
+  Mamba-2 dt_bias, RMSNorm scale          → dt_bias, norm.weight
   LSTM ii|if|ig|io kernels (Din, D) each → input.weight (4D, Din), gate rows i, f, g, o
   LSTM hi|hf|hg|ho kernels and biases    → hidden.weight (4D, D), hidden.bias (4D,)
 
@@ -23,6 +25,10 @@ utils/torch_convert.py):
 variables, `eend_to_flax` maps either model's state dict back.
 `spk_from_flax` / `spk_to_flax` map the JAX SpeakerClassifier (CAM++ with its
 dense head, plus `aam_weight`), and `campplus_to_flax` a CAM++ state dict.
+
+`streaming_tsvad_from_flax` / `streaming_tsvad_to_flax` map the JAX
+StreamingTSVADModel (its Conv2d front-end, Dense layers, and KV encoder
+layers whose q/k/v/out are DenseGeneral kernels as in the MHA rows above).
 
 `load_encoder_npz` reads the JAX `export-encoder` npz (models/spk_embed.py
 `save_encoder`: "/"-joined variable paths and a JSON `__cfg__`).
@@ -167,12 +173,46 @@ def _mamba_backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tenso
     return {k: _t(v) for k, v in sd.items()}
 
 
+def _mamba2_backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax BiMamba2Block params → this package's BiMamba2Block state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, sub in params.items():
+        base = f"{prefix}.{name}"
+        if name.startswith("norm_"):  # norm_i and norm_out: RMSNorm, a scale only
+            sd[f"{base}.weight"] = sub["scale"]
+        elif name.startswith("merge_"):
+            sd[f"{base}.weight"] = sub["kernel"].T
+        else:  # fwd_i / bwd_i: one Mamba2Layer
+            for lin in ("in_proj", "out_proj"):
+                sd[f"{base}.{lin}.weight"] = sub[lin]["kernel"].T
+            sd[f"{base}.conv.weight"] = sub["conv_kernel"].transpose(2, 1, 0)
+            sd[f"{base}.conv.bias"] = sub["conv_bias"]
+            sd[f"{base}.norm.weight"] = sub["norm"]["scale"]
+            for leaf in ("dt_bias", "A_log", "D"):
+                sd[f"{base}.{leaf}"] = sub[leaf]
+    return {k: _t(v) for k, v in sd.items()}
+
+
+def _backend_from_flax_any(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """A TS-VAD backend of any ported kind, told apart by its own keys: a
+    transformer has layer_i, a BiMamba-2 layer a dt_bias, a BiMamba layer
+    an x_proj."""
+    if "fwd_0" not in params:
+        return _backend_from_flax(params, prefix)
+    if "dt_bias" in params["fwd_0"]:
+        return _mamba2_backend_from_flax(params, prefix)
+    return _mamba_backend_from_flax(params, prefix)
+
+
 def _mamba_to_flax(parts: list, w: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
-    """Inverse of `_mamba_backend_from_flax` for one tensor: parts are the
-    state-dict name below the backend ([module, ..., leaf])."""
+    """Inverse of `_mamba_backend_from_flax` and `_mamba2_backend_from_flax`
+    for one tensor: parts are the state-dict name below the backend
+    ([module, ..., leaf])."""
     mod, leaf = parts[0], parts[-1]
     if mod.startswith("norm_"):
         return (mod, "scale" if leaf == "weight" else "bias"), w
+    if parts[1] == "norm":  # a Mamba-2 layer's gated RMSNorm
+        return (mod, "norm", "scale"), w
     if mod.startswith("merge_"):
         return (mod, "kernel"), w.T
     if parts[1] == "conv":
@@ -214,8 +254,8 @@ def _conv_bn_from_flax(params: dict, stats: dict, prefix: str) -> Dict[str, torc
 
 def tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX TSVADModel variables ({'params', 'batch_stats'}, arrays) →
-    this package's TSVADModel state_dict (CAM++ encoder, transformer or
-    BiMamba backends)."""
+    this package's TSVADModel state_dict (CAM++ encoder, transformer,
+    BiMamba or BiMamba-2 backends)."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     enc = campplus_from_flax(p["speech_encoder"], s["speech_encoder"])
@@ -226,8 +266,7 @@ def tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
         sd["proj_layer.weight"] = _t(p["proj_layer"]["kernel"].T)
         sd["proj_layer.bias"] = _t(p["proj_layer"]["bias"])
     for name in ("single_backend", "multi_backend"):
-        backend = _mamba_backend_from_flax if "norm_out" in p[name] else _backend_from_flax
-        sd.update(backend(p[name], name))
+        sd.update(_backend_from_flax_any(p[name], name))
     sd["fc.weight"] = _t(p["fc"]["kernel"].T)
     sd["fc.bias"] = _t(p["fc"]["bias"])
     return sd
@@ -349,13 +388,69 @@ def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
                 _put(out[coll], (top, "bn", n), w)
         elif top in ("fc", "proj_layer"):
             _put(out["params"], (top, "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w)
-        elif not parts[1].startswith("layer_"):  # a BiMamba backend
+        elif not parts[1].startswith("layer_"):  # a BiMamba or BiMamba-2 backend
             path, w = _mamba_to_flax(parts[1:], w)
             _put(out["params"], (top, *path), w)
         else:  # {single,multi}_backend.layer_i.<...>
             path, w = _layer_to_flax(parts[1:], w, num_heads)
             _put(out["params"], (top, *path), w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Streaming TS-VAD
+# ---------------------------------------------------------------------------
+
+_HEADS = ("query", "key", "value", "out")
+
+
+def streaming_tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX StreamingTSVADModel variables ({'params'}, arrays) → this
+    package's StreamingTSVADModel state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, w in _flatten(variables["params"]):
+        mod, leaf = list(path[:-1]), path[-1]
+        if mod[-1].startswith("Dense_"):  # a KV layer's ff/Dense_i
+            mod[-1] = "dense" + mod[-1][len("Dense_"):]
+        if leaf == "kernel":
+            if mod[-1] in _HEADS and w.ndim == 3:  # (D, H, Dh), or out's (H, Dh, D)
+                w = (w.reshape(-1, w.shape[-1]) if mod[-1] == "out" else w.reshape(w.shape[0], -1)).T
+            else:
+                w = _kernel(w)
+            name = "weight"
+        elif leaf == "bias":
+            w, name = w.reshape(-1), "bias"
+        else:  # LayerNorm scale
+            name = "weight"
+        sd[".".join(mod + [name])] = _t(w)
+    return sd
+
+
+def streaming_tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """StreamingTSVADModel state_dict → JAX variables as numpy ({'params'});
+    the inverse of `streaming_tsvad_from_flax`."""
+    params: dict = {}
+    for name, t in state_dict.items():
+        w = t.detach().cpu().float().numpy()
+        parts = name.split(".")
+        mod, leaf = parts[:-1], parts[-1]
+        if mod[-1].startswith("dense"):
+            mod[-1] = "Dense_" + mod[-1][len("dense"):]
+        if mod[-1].startswith("ln"):
+            _put(params, (*mod, "scale" if leaf == "weight" else "bias"), w)
+        elif mod[-1] in _HEADS and mod[-2].startswith("layer_"):
+            if leaf == "bias":
+                w = w if mod[-1] == "out" else w.reshape(num_heads, -1)
+            elif mod[-1] == "out":  # (D, H·Dh) → (H, Dh, D)
+                w = w.T.reshape(num_heads, -1, w.shape[0])
+            else:  # (H·Dh, D) → (D, H, Dh)
+                w = w.T.reshape(w.shape[1], num_heads, -1)
+            _put(params, (*mod, "kernel" if leaf == "weight" else "bias"), w)
+        elif leaf == "weight":
+            _put(params, (*mod, "kernel"), w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T)
+        else:
+            _put(params, (*mod, "bias"), w)
+    return {"params": params}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Port parity: the selective-scan twins (K3a/K3b/K3c), SelectiveScanFn, the
-Mamba layers and TS-VAD with BiMamba backends, against the JAX package."""
+Mamba and Mamba-2 layers and TS-VAD with BiMamba and BiMamba-2 backends,
+against the JAX package."""
 
 import importlib
 
@@ -9,14 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from speaker_diarization_tpu.models.mamba import BiMamba2Block as JBiMamba2
 from speaker_diarization_tpu.models.mamba import BiMambaBlock as JBiMamba
+from speaker_diarization_tpu.models.mamba import Mamba2Layer as JMamba2Layer
 from speaker_diarization_tpu.models.mamba import MambaLayer as JMambaLayer
 from speaker_diarization_tpu.models.tsvad import TSVADConfig as JConfig
 from speaker_diarization_tpu.models.tsvad import TSVADModel as JModel
 from speaker_diarization_tpu.ops.mamba_scan import selective_scan as j_assoc
 from speaker_diarization_tpu.ops.mamba_scan import selective_scan_sequential as j_seq
 from speaker_diarization_tpu_torch.kernels import selective_scan as K3
-from speaker_diarization_tpu_torch.models.mamba import BiMambaBlock, Mamba2Layer, MambaLayer
+from speaker_diarization_tpu_torch.models.layers import init_weights_
+from speaker_diarization_tpu_torch.models.mamba import BiMamba2Block, BiMambaBlock, Mamba2Layer, MambaLayer
 from speaker_diarization_tpu_torch.models.tsvad import TSVADConfig, TSVADModel
 from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_auto, selective_scan_sequential
 from speaker_diarization_tpu_torch.utils import convert
@@ -216,6 +220,72 @@ def test_tsvad_mamba_logits_match_jax():
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_mamba2_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        Mamba2Layer(32)
+def test_mamba2_layer_matches_flax():
+    """One Mamba-2 mixer (four heads of 16 over d_inner 64, T = 77 over two
+    SSD chunks of 64 with a padded tail) and its flax weights."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 77, 32)).astype(np.float32)
+    jl = JMamba2Layer(d_model=32, d_state=8, headdim=16)
+    p = _perturb(jl.init(jax.random.PRNGKey(3), jnp.asarray(x))["params"], 5)
+    ref = np.asarray(jl.apply({"params": p}, jnp.asarray(x)))
+    layer = Mamba2Layer(32, d_state=8, headdim=16)
+    sd = convert._mamba2_backend_from_flax({"fwd_0": p}, "b")
+    layer.load_state_dict({k[len("b.fwd_0."):]: v for k, v in sd.items()})
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("merge", ["concat", "add"])
+def test_bimamba2_block_matches_flax(merge):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((3, 70, 32)).astype(np.float32)  # 70 frames: two chunks of 64
+    jb = JBiMamba2(d_model=32, n_layer=2, d_state=8, headdim=16, merge=merge)
+    p = _perturb(jb.init(jax.random.PRNGKey(7), jnp.asarray(x))["params"], 8)
+    ref = np.asarray(jb.apply({"params": p}, jnp.asarray(x)))
+    block = BiMamba2Block(32, n_layer=2, d_state=8, headdim=16, merge=merge)
+    block.load_state_dict({k[2:]: v for k, v in convert._mamba2_backend_from_flax(p, "b").items()})
+    with torch.no_grad():
+        got = block(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+    assert ("merge_0.weight" in block.state_dict()) == (merge == "concat")
+
+
+def test_mamba2_seeded_init_follows_jax_ranges():
+    """`init_weights_` draws A from U[1, 16] and softplus(dt_bias) from a
+    log-uniform [1e-3, 1e-1], as the JAX Mamba2Layer's initialisers; D is 1."""
+    layer = Mamba2Layer(128, d_state=8, headdim=1)  # 256 heads of one channel
+    init_weights_(layer, torch.Generator().manual_seed(0))
+    A = torch.exp(layer.A_log.detach())
+    dt = torch.nn.functional.softplus(layer.dt_bias.detach())
+    assert 1.0 <= A.min() and A.max() <= 16.0 and A.std() > 3.0
+    assert 1e-3 * (1 - 1e-5) <= dt.min() and dt.max() <= 1e-1 * (1 + 1e-5)
+    assert torch.log10(dt).std() > 0.4  # spread over both decades
+    torch.testing.assert_close(layer.D.detach(), torch.ones(256))
+
+
+@pytest.mark.parametrize("single,multi", [("mamba2", "mamba2_add"), ("mamba2_add", "mamba2")])
+def test_tsvad_mamba2_logits_match_jax(single, multi):
+    """fp32 TS-VAD logits with BiMamba-2 backends (both merges, each in both
+    positions) at the tolerance of test_torch_tsvad.py, and the weights'
+    round trip through the flax layout."""
+    kw = dict(SMALL, single_backend_type=single, multi_backend_type=multi, d_state=16)
+    jmodel = JModel(cfg=JConfig(**kw))  # d_inner 128: two heads of 64
+    v = jax.jit(jmodel.init, static_argnums=3)(jax.random.PRNGKey(0), jnp.zeros((1, 16000)), jnp.zeros((1, 4, 32)), 25)
+    v = {"params": _perturb(v["params"], 9), "batch_stats": jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32) + 0.05, v["batch_stats"])}
+    model = TSVADModel(TSVADConfig(**kw), device="cpu")
+    model.load_state_dict(convert.tsvad_from_flax(v))
+    rng = np.random.default_rng(10)
+    audio = (0.1 * rng.standard_normal((2, 24000))).astype(np.float32)
+    embs = rng.standard_normal((2, 4, 32)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda v, a, e: jmodel.apply(v, a, e, None, train=False))(v, audio, embs))
+    with torch.no_grad():
+        got = model(torch.from_numpy(audio), torch.from_numpy(embs)).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=2e-3)
+    back = convert.tsvad_to_flax(model.state_dict(), num_heads=4)
+    flat = lambda t: {jax.tree_util.keystr(k): np.asarray(x) for k, x in jax.tree_util.tree_flatten_with_path(t)[0]}  # noqa: E731
+    a, b = flat(v), flat(back)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

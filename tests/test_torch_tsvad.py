@@ -115,6 +115,6 @@ def test_weight_conversion_round_trips(tsvad_pair, tmp_path):
 
 
 def test_unported_encoders_and_backends_raise():
-    for kw in (dict(speech_encoder_type="wavlm"), dict(single_backend_type="mamba2"), dict(multi_backend_type="lstm")):
+    for kw in (dict(speech_encoder_type="wavlm"), dict(single_backend_type="conformer"), dict(multi_backend_type="lstm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TSVADModel(TSVADConfig(**SMALL, **kw), device="cpu")
