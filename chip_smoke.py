@@ -9,12 +9,15 @@ FCM head) against its plain PyTorch twin on the card at the shapes of the
 main paths (K4 also against the cuDNN head it replaces; K2 run twice must
 give the same bits; K2 also at the input widths of shallower encoders, and
 bf16 TS-VAD forwards with them; K1 and K1′ run twice must give the same bits,
-and ptxas's registers and spills of each K1 instance are printed). Where
-build/prev/{cam_block,fcm}.cu hold K2 and K4 as of commit 8cf507d, and where
-build/prev/fbank.cu holds K1/K1′ as of commit 2eeeb87 (copied there from git
-for a call; build/ is not committed), they are built and timed beside the
-current ones. Then drives, each
-with the launch counts set to 0 just before and read just after:
+and ptxas's registers and spills of each K1 instance are printed; K3c run
+twice must give the same bits, and ptxas's registers and spills of each K3c
+instance are printed). Where build/prev/{cam_block,fcm}.cu hold K2 and K4 as
+of commit 8cf507d, where build/prev/fbank.cu holds K1/K1′ as of commit
+2eeeb87 and where build/prev/selective_scan.cu holds K3c as of commit
+e35add6 (copied there from git for a call; build/ is not committed; each
+optional, checked by git blob id), they are built and timed beside the
+current ones. It then drives, each with the launch counts set to 0 just
+before and read just after:
 - the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
   random weights): fbank 1, cam_block 3, fcm 1;
 - the same with BiMamba backends (d_state 64): fbank 1, cam_block 3, fcm 1,
@@ -188,35 +191,68 @@ def prev_kernels():
     return {"cam_block": cam_block, "fcm": fcm}
 
 
-# the git blob id of fbank.cu at commit 2eeeb87 (the radix-2 K1/K1′, one CTA
-# per 8 frames), the only version whose C interface prev_fbank calls
-PREV_FBANK_BLOB = "09f7470c5770cf6754f83f3f3b4fe769b9a19a99"
+# the git blob ids of the previous sources that build/prev may hold, the
+# only versions whose C interfaces prev_fbank and prev_scan_bwd call:
+# fbank.cu at 2eeeb87 (the radix-2 K1/K1′, one CTA per 8 frames) and
+# selective_scan.cu at e35add6, unchanged since cb35afa (K3c with one warp
+# per channel, reading its inputs from device memory at every step)
+PREV_BUILDS = {"fbank": ("2eeeb87", "09f7470c5770cf6754f83f3f3b4fe769b9a19a99"),
+               "selective_scan": ("e35add6", "53f07f44c381e6e20bc2fdc32abea960623df257")}
 
 
-def start_prev_fbank():
-    """Start building K1/K1′ as of commit 2eeeb87 from build/prev/fbank.cu,
-    where a call put it there (`git show 2eeeb87:speaker_diarization_tpu_torch/csrc/fbank.cu
-    > build/prev/fbank.cu`; build/ is not committed), in parallel with the
-    port's own builds; None where it is absent. Any other source raises: the
-    ctypes signatures of prev_fbank are that commit's."""
+def start_prev(name):
+    """Start building csrc/<name>.cu as of its commit in PREV_BUILDS from
+    build/prev/<name>.cu, where a call put it there (`mkdir -p build/prev;
+    git show <commit>:speaker_diarization_tpu_torch/csrc/<name>.cu >
+    build/prev/<name>.cu`; build/ is not committed), in parallel with the
+    port's own builds; None where it is absent. Any other source raises."""
     import hashlib
 
     from speaker_diarization_tpu_torch.kernels import _build
 
-    src = os.path.join(PREV_DIR, "fbank.cu")
+    src = os.path.join(PREV_DIR, name + ".cu")
     if not os.path.exists(src):
         return None
     with open(src, "rb") as f:
         data = f.read()
-    if hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest() != PREV_FBANK_BLOB:
-        raise RuntimeError("build/prev/fbank.cu is not fbank.cu of commit 2eeeb87, whose C interface the timing calls")
+    commit, blob = PREV_BUILDS[name]
+    if hashlib.sha1(b"blob %d\0" % len(data) + data).hexdigest() != blob:
+        raise RuntimeError(f"build/prev/{name}.cu is not {name}.cu of commit {commit}, whose C interface the timing calls")
     so = src[:-3] + ".so"
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so, name
+
+
+def finish_prev(started):
+    """(the loaded library, nvcc's log) of a `start_prev` build, or None."""
+    import ctypes
+
+    if started is None:
+        return None
+    proc, so, name = started
+    log = proc.communicate()[0].decode(errors="replace")
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for build/prev/{name}.cu:\n{log}")
+    lib = ctypes.CDLL(so)
+    lib.sdt_cuda_error_string.restype = ctypes.c_char_p
+    lib.sdt_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib, log
+
+
+def ptxas_props(log, kernel):
+    """{first template argument: ptxas's register and spill lines} of each
+    instance of `kernel` (its mangled name, e.g. `kernel<64>`) in an nvcc log."""
+    props, inst = {}, None
+    for line in log.splitlines():
+        m = re.search(rf"(?:Compiling entry function|Function properties for) '?[\w$]*{kernel}ILi(\d+)E", line)
+        inst = m.group(1) if m else (None if "entry function" in line or "properties for" in line else inst)
+        if inst and re.search(r"registers|spill", line):
+            props.setdefault(inst, []).append(line.split(":", 1)[-1].strip())
+    return dict(sorted(props.items(), key=lambda kv: int(kv[0])))
 
 
 def prev_fbank(started):
-    """The previous K1 and K1′ from `start_prev_fbank()`'s build, or None:
+    """The previous K1 and K1′ from `start_prev("fbank")`'s build, or None:
     {"fbank": fn(x, sr, n_mels), "logmel": fn(x, T, fs, sh, sr, n_mels)},
     on the same device constants as the current wrappers."""
     import ctypes
@@ -227,16 +263,11 @@ def prev_fbank(started):
     from speaker_diarization_tpu_torch.kernels import fbank as K1
     from speaker_diarization_tpu_torch.ops import features as FE
 
-    if started is None:
+    built = finish_prev(started)
+    if built is None:
         return None
-    proc, so = started
-    log = proc.communicate()[0].decode(errors="replace")
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for build/prev/fbank.cu:\n{log}")
-    lib = ctypes.CDLL(so)
+    lib = built[0]
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sdt_cuda_error_string.restype = ctypes.c_char_p
-    lib.sdt_cuda_error_string.argtypes = [I]
     lib.sdt_fbank_f32.restype = I
     lib.sdt_fbank_f32.argtypes = [P] * 7 + [I] * 9 + [ctypes.c_float, ctypes.c_float, I, P]
     lib.sdt_logmel_f32.restype = I
@@ -269,6 +300,42 @@ def prev_fbank(started):
     return {"fbank": fbank, "logmel": logmel}
 
 
+def prev_scan_bwd(started):
+    """The previous K3c from `start_prev("selective_scan")`'s build, or None:
+    (fn with the current wrapper's arguments and results, nvcc's log)."""
+    import ctypes
+
+    import torch
+
+    from speaker_diarization_tpu_torch.kernels import _build
+
+    built = finish_prev(started)
+    if built is None:
+        return None
+    lib = built[0]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sdt_selective_scan_bwd_tiles.restype = I
+    lib.sdt_selective_scan_bwd_tiles.argtypes = [I]
+    lib.sdt_selective_scan_bwd.restype = I
+    lib.sdt_selective_scan_bwd.argtypes = [P] * 18 + [I] * 4 + [P]
+
+    def scan_bwd(x, delta, A, Bm, C, D, h0, g):
+        Bsz, T, Dd = x.shape
+        N = A.shape[1]
+        dx, ddt, dB, dC = (torch.empty_like(t) for t in (x, delta, Bm, C))
+        dA, dD = torch.empty_like(A), torch.empty_like(D)
+        dA_part, dD_part = x.new_empty((Bsz, Dd, N)), x.new_empty((Bsz, Dd))
+        dB_part = x.new_empty((lib.sdt_selective_scan_bwd_tiles(Dd), Bsz, T, N))
+        dC_part = torch.empty_like(dB_part)
+        ts = (x, delta, A, Bm, C, D, h0, g, dx, ddt, dA, dB, dC, dD, dA_part, dD_part, dB_part, dC_part)
+        code = lib.sdt_selective_scan_bwd(*[t.data_ptr() for t in ts], Bsz, T, Dd, N,
+                                          torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, "previous selective_scan_bwd")
+        return dx, ddt, dA, dB, dC, dD
+
+    return scan_bwd, built[1]
+
+
 def graph_ms(fn, iters=20, reps=5):
     """Device ms of one call of `fn`: `iters` calls captured in a CUDA graph,
     replayed `reps` times between two events, so that the host's dispatch of
@@ -297,15 +364,132 @@ def graph_ms(fn, iters=20, reps=5):
     return start.elapsed_time(end) / (iters * reps)
 
 
-def paired_ms(fn, prev_fn):
-    """(kernel ms, previous kernel ms or None) on the device (`graph_ms`),
-    timed in turns kernel, previous, previous, kernel on one card; each the
-    mean of its two runs."""
+def paired_ms(fn, prev_fn, timer=graph_ms):
+    """(kernel ms, previous kernel ms or None) on the device (`timer`,
+    `graph_ms` by default), timed in turns kernel, previous, previous, kernel
+    on one card; each the mean of its two runs."""
     if prev_fn is None:
-        return graph_ms(fn), None
-    a, b = graph_ms(fn), graph_ms(prev_fn)
-    b2, a2 = graph_ms(prev_fn), graph_ms(fn)
+        return timer(fn), None
+    a, b = timer(fn), timer(prev_fn)
+    b2, a2 = timer(prev_fn), timer(fn)
     return (a + a2) / 2, (b + b2) / 2
+
+
+def scan_phase(gen, dev, prev_bwd=None):
+    """K3a/K3b/K3c against their plain twins (fp32) at the Mamba main path's
+    two shapes, T = 100, d_inner 768, d_state 64: the single backend's
+    B·S = 256 rows and the multi backend's 64. Each forward or train step
+    launches each kernel 4 times at each shape, so the records are per
+    forward (K3a) or per train step (K3b, K3c). Bars: y and h0 within
+    1e-4 · max(1, max|twin|) (a few ulp of exp per step over 100 steps);
+    each gradient within 1e-3 · max|twin gradient| (dA and dD sum 25,600
+    rows in another order); two K3c runs must give the same bits. Then the
+    ragged shapes (T not a multiple of the chunk or the time tile, d_inner
+    not a multiple of the block) at every built d_state. `prev_bwd` is
+    `prev_scan_bwd`'s (fn, nvcc log) or None: the previous K3c, timed
+    beside K3c in turns. → records of the three kernels."""
+    import torch
+
+    from speaker_diarization_tpu_torch.kernels import _build
+    from speaker_diarization_tpu_torch.kernels import selective_scan as K3
+    from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_sequential
+
+    phase("prev", "the previous K3c built from build/prev/selective_scan.cu for timing" if prev_bwd else
+          "no build/prev/selective_scan.cu: the previous K3c is not timed")
+    for what, log in (("", _build.build_log("selective_scan")), ("previous ", prev_bwd[1] if prev_bwd else "")):
+        for inst, lines in ptxas_props(log, "scan_bwd_kernel").items():
+            phase("K3", f"{what}scan_bwd_kernel<{inst}>: {' | '.join(lines)}")
+    k3 = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0, exps=0.0)
+          for k in ("selective_scan_fwd", "selective_scan_fwd_states", "selective_scan_bwd")}
+    k3["selective_scan_bwd"]["prev_ms"] = 0.0 if prev_bwd else None
+    T3, D3, N3 = 100, 768, 64
+    for Bs in (256, 64):
+        x = torch.randn((Bs, T3, D3), generator=gen).to(dev)
+        dt = torch.nn.functional.softplus(torch.randn((Bs, T3, D3), generator=gen) - 2.0).to(dev)
+        A = -torch.arange(1, N3 + 1, dtype=torch.float32).repeat(D3, 1).to(dev)
+        Bm = torch.randn((Bs, T3, N3), generator=gen).to(dev)
+        C = torch.randn((Bs, T3, N3), generator=gen).to(dev)
+        Dp = (1.0 + 0.1 * torch.randn(D3, generator=gen)).to(dev)
+        gy = torch.randn((Bs, T3, D3), generator=gen).to(dev)
+        a3 = (x, dt, A, Bm, C, Dp)
+        y = K3.selective_scan_fwd(*a3)
+        y2, h0 = K3.selective_scan_fwd_states(*a3)
+        yr, h0r = K3.selective_scan_states_ref(*a3)
+        grads = K3.selective_scan_bwd(*a3, h0, gy)
+        again = K3.selective_scan_bwd(*a3, h0, gy)
+        grads_r = K3.selective_scan_bwd_ref(*a3, h0r, gy)
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in zip(grads, again))
+        y_bar, h_bar = 1e-4 * max(1.0, yr.abs().max().item()), 1e-4 * max(1.0, h0r.abs().max().item())
+        e_fwd = (y - yr).abs().max().item()
+        e_y2, e_h0 = (y2 - yr).abs().max().item(), (h0 - h0r).abs().max().item()
+        g_errs = {n: ((p - q).abs().max().item(), 1e-3 * q.abs().max().item())
+                  for n, p, q in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, grads_r)}
+        phase("K3", f"({Bs}, {T3}, {D3}, {N3}) fwd max-abs {e_fwd:.3e} (bar {y_bar:.3e}); fwd_states y {e_y2:.3e}, "
+              f"h0 {e_h0:.3e} (bar {h_bar:.3e}); bwd " + ", ".join(f"{n} {e:.3e} (bar {b:.3e})" for n, (e, b) in g_errs.items())
+              + f"; two bwd runs bitwise equal: {same}")
+        if not (e_fwd <= y_bar and e_y2 <= y_bar and e_h0 <= h_bar and all(e <= b for e, b in g_errs.values())
+                and same and all(torch.isfinite(t).all() for t in (y, y2, h0, *grads))):
+            raise AssertionError(f"K3 disagrees with its twins at B={Bs}")
+        bwd_ms, prev_ms = paired_ms(lambda: K3.selective_scan_bwd(*a3, h0, gy),
+                                    (lambda: prev_bwd[0](*a3, h0, gy)) if prev_bwd else None,
+                                    timer=lambda f: cuda_ms(f, iters=5))
+        prev_err = None
+        if prev_bwd:
+            prev_err = max((p - q).abs().max().item() / (1e-3 * q.abs().max().item())
+                           for p, q in zip(prev_bwd[0](*a3, h0, gy), grads_r))
+        times = {
+            "selective_scan_fwd": (cuda_ms(lambda: K3.selective_scan_fwd(*a3)),
+                                   cuda_ms(lambda: selective_scan_sequential(*a3), iters=3, warmup=1), "fwd", e_fwd),
+            "selective_scan_fwd_states": (cuda_ms(lambda: K3.selective_scan_fwd_states(*a3)),
+                                          cuda_ms(lambda: K3.selective_scan_states_ref(*a3), iters=3, warmup=1),
+                                          "states", max(e_y2, e_h0)),
+            "selective_scan_bwd": (bwd_ms, cuda_ms(lambda: K3.selective_scan_bwd_ref(*a3, h0r, gy), iters=2, warmup=1),
+                                   "bwd", max(e for e, _ in g_errs.values())),
+        }
+        for key, (ms, plain, kind, err) in times.items():
+            work = K3.scan_work(kind, Bs, T3, D3, N3)
+            bms, by = bound(work, H100_FP32_FLOPS)
+            line = f"{key} ({Bs}, {T3}, {D3}, {N3}): kernel {ms:.4f} ms, "
+            if key == "selective_scan_bwd":
+                line += ("previous kernel not measured, " if prev_ms is None else
+                         f"previous kernel {prev_ms:.4f} ms (its worst gradient error {prev_err:.3f} of the bar), ")
+            phase("K3", line + f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}) per launch")
+            r = k3[key]
+            r["ms"] += 4 * ms
+            r["plain_ms"] += 4 * plain
+            r["bound_ms"] += 4 * bms
+            r["err"] = max(r["err"], err)
+            for q in ("bytes", "flops", "exps"):
+                r[q] += 4 * work[q]
+        if prev_ms is not None:
+            k3["selective_scan_bwd"]["prev_ms"] += 4 * prev_ms
+    r = k3["selective_scan_bwd"]
+    prev_total = "not measured" if r["prev_ms"] is None else f"{r['prev_ms']:.4f} ms"
+    phase("K3", f"K3c per Mamba train step (4 launches at B = 256, 4 at 64): kernel {r['ms']:.4f} ms, "
+          f"previous kernel {prev_total}, bound {r['bound_ms']:.4f} ms")
+    for Bs, Tx, Dx in ((3, 37, 100), (2, 50, 200), (4, 33, 130)):
+        for Nx in K3.STATE_SIZES:
+            x = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
+            dt = (0.01 + 0.1 * torch.rand((Bs, Tx, Dx), generator=gen)).to(dev)
+            A = -torch.exp(torch.randn((Dx, Nx), generator=gen)).to(dev)
+            a3 = (x, dt, A, torch.randn((Bs, Tx, Nx), generator=gen).to(dev),
+                  torch.randn((Bs, Tx, Nx), generator=gen).to(dev), torch.randn(Dx, generator=gen).to(dev))
+            gy = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
+            yr, h0r = K3.selective_scan_states_ref(*a3)
+            y2, h0 = K3.selective_scan_fwd_states(*a3)
+            e = max((K3.selective_scan_fwd(*a3) - yr).abs().max().item(), (y2 - yr).abs().max().item())
+            grads = K3.selective_scan_bwd(*a3, h0, gy)
+            same = all(torch.equal(p, q) for p, q in zip(grads, K3.selective_scan_bwd(*a3, h0, gy)))
+            ge = max(((p - q).abs().max() / q.abs().max()).item()
+                     for p, q in zip(grads, K3.selective_scan_bwd_ref(*a3, h0r, gy)))
+            phase("K3", f"({Bs}, {Tx}, {Dx}, {Nx}): y max-abs {e:.3e} (bar {1e-4 * max(1.0, yr.abs().max().item()):.3e}), "
+                  f"gradients max-abs / max|twin| {ge:.3e} (bar 1e-3), two bwd runs bitwise equal: {same}")
+            if not (e <= 1e-4 * max(1.0, yr.abs().max().item()) and ge <= 1e-3 and same):
+                raise AssertionError(f"K3 disagrees with its twins at ({Bs}, {Tx}, {Dx}, {Nx})")
+    for r in k3.values():
+        r["bound_by"] = bound(r, H100_FP32_FLOPS)[1]
+    return k3
 
 
 def cli(*args, timeout=600):
@@ -518,7 +702,8 @@ def main() -> int:
     phase("device", f"{name} | {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    prev_fbank_build = start_prev_fbank()
+    prev_fbank_build = start_prev("fbank")
+    prev_scan_build = start_prev("selective_scan")
     built = _build.build_all()
     phase("build", f"{json.dumps({k: round(v, 2) for k, v in built.items()})} wall {time.perf_counter() - t0:.2f} s "
           f"(cached: {sorted(set(_build.sources()) - set(built))})")
@@ -529,7 +714,6 @@ def main() -> int:
             fn = m.group(1) if m else fn
             if re.search(r"registers|spill", line):
                 phase("ptxas", f"{src} {fn}: {line.split(':', 1)[-1].strip()}")
-
     gen = torch.Generator(device="cpu").manual_seed(0)
     records = {}
 
@@ -539,13 +723,7 @@ def main() -> int:
     prev1 = prev_fbank(prev_fbank_build)
     phase("prev", "the previous K1/K1′ built from build/prev/fbank.cu for timing" if prev1 else
           "no build/prev/fbank.cu: the previous K1/K1′ is not timed")
-    props, fn = {}, None  # ptxas's registers and spills of each instance of the kernel
-    for line in _build.build_log("fbank").splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?[\w$]*fbank_kernelILi(\d+)E", line)
-        fn = m.group(1) if m else (None if "entry function" in line or "properties for" in line else fn)
-        if fn and re.search(r"registers|spill", line):
-            props.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
-    for inst, lines in sorted(props.items(), key=lambda kv: int(kv[0])):
+    for inst, lines in ptxas_props(_build.build_log("fbank"), "fbank_kernel").items():
         phase("K1", f"fbank_kernel<{inst}> (n_fft {2 * int(inst)}): {' | '.join(lines)}")
     k1lib = K1._lib()
     for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000))):
@@ -850,91 +1028,15 @@ def main() -> int:
         if not (e_twin <= 2e-4 and e_cudnn <= 2e-4 and torch.isfinite(got).all()):
             raise AssertionError(f"K4 fp32 ({Bx}, {Tx}) disagrees: {e_twin} vs the twin, {e_cudnn} vs _fcm_infer")
 
-    # ---- K3a/K3b/K3c: the selective-scan kernels vs their plain twins (fp32)
-    # at the Mamba main path's two shapes, T = 100, d_inner 768, d_state 64:
-    # the single backend's B·S = 256 rows and the multi backend's 64. Each
-    # forward or train step launches each kernel 4 times at each shape, so
-    # the records are per forward (K3a) or per train step (K3b, K3c).
-    # Bars: y and h0 within 1e-4 · max(1, max|twin|) (a few ulp of exp per
-    # step over 100 steps); each gradient within 1e-3 · max|twin gradient|
-    # (dA and dD sum 25,600 rows in another order).
-    from speaker_diarization_tpu_torch.kernels import selective_scan as K3
-    from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_sequential
-
-    k3 = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0, exps=0.0)
-          for k in ("selective_scan_fwd", "selective_scan_fwd_states", "selective_scan_bwd")}
-    T3, D3, N3 = 100, 768, 64
-    for Bs in (256, 64):
-        x = torch.randn((Bs, T3, D3), generator=gen).to(dev)
-        dt = torch.nn.functional.softplus(torch.randn((Bs, T3, D3), generator=gen) - 2.0).to(dev)
-        A = -torch.arange(1, N3 + 1, dtype=torch.float32).repeat(D3, 1).to(dev)
-        Bm = torch.randn((Bs, T3, N3), generator=gen).to(dev)
-        C = torch.randn((Bs, T3, N3), generator=gen).to(dev)
-        Dp = (1.0 + 0.1 * torch.randn(D3, generator=gen)).to(dev)
-        gy = torch.randn((Bs, T3, D3), generator=gen).to(dev)
-        a3 = (x, dt, A, Bm, C, Dp)
-        y = K3.selective_scan_fwd(*a3)
-        y2, h0 = K3.selective_scan_fwd_states(*a3)
-        yr, h0r = K3.selective_scan_states_ref(*a3)
-        grads = K3.selective_scan_bwd(*a3, h0, gy)
-        grads_r = K3.selective_scan_bwd_ref(*a3, h0r, gy)
-        torch.cuda.synchronize()
-        y_bar, h_bar = 1e-4 * max(1.0, yr.abs().max().item()), 1e-4 * max(1.0, h0r.abs().max().item())
-        e_fwd = (y - yr).abs().max().item()
-        e_y2, e_h0 = (y2 - yr).abs().max().item(), (h0 - h0r).abs().max().item()
-        g_errs = {n: ((p - q).abs().max().item(), 1e-3 * q.abs().max().item())
-                  for n, p, q in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, grads_r)}
-        phase("K3", f"({Bs}, {T3}, {D3}, {N3}) fwd max-abs {e_fwd:.3e} (bar {y_bar:.3e}); fwd_states y {e_y2:.3e}, "
-              f"h0 {e_h0:.3e} (bar {h_bar:.3e}); bwd " + ", ".join(f"{n} {e:.3e} (bar {b:.3e})" for n, (e, b) in g_errs.items()))
-        if not (e_fwd <= y_bar and e_y2 <= y_bar and e_h0 <= h_bar and all(e <= b for e, b in g_errs.values())
-                and all(torch.isfinite(t).all() for t in (y, y2, h0, *grads))):
-            raise AssertionError(f"K3 disagrees with its twins at B={Bs}")
-        times = {
-            "selective_scan_fwd": (cuda_ms(lambda: K3.selective_scan_fwd(*a3)),
-                                   cuda_ms(lambda: selective_scan_sequential(*a3), iters=3, warmup=1), "fwd", e_fwd),
-            "selective_scan_fwd_states": (cuda_ms(lambda: K3.selective_scan_fwd_states(*a3)),
-                                          cuda_ms(lambda: K3.selective_scan_states_ref(*a3), iters=3, warmup=1),
-                                          "states", max(e_y2, e_h0)),
-            "selective_scan_bwd": (cuda_ms(lambda: K3.selective_scan_bwd(*a3, h0, gy), iters=5),
-                                   cuda_ms(lambda: K3.selective_scan_bwd_ref(*a3, h0r, gy), iters=2, warmup=1),
-                                   "bwd", max(e for e, _ in g_errs.values())),
-        }
-        for key, (ms, plain, kind, err) in times.items():
-            work = K3.scan_work(kind, Bs, T3, D3, N3)
-            bms, by = bound(work, H100_FP32_FLOPS)
-            phase("K3", f"{key} ({Bs}, {T3}, {D3}, {N3}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {bms:.4f} ms ({by}) per launch")
-            r = k3[key]
-            r["ms"] += 4 * ms
-            r["plain_ms"] += 4 * plain
-            r["bound_ms"] += 4 * bms
-            r["err"] = max(r["err"], err)
-            for q in ("bytes", "flops", "exps"):
-                r[q] += 4 * work[q]
-    # ragged shapes: T not a multiple of the chunk or the time tile, d_inner
-    # not a multiple of the block, every built d_state
-    for Bs, Tx, Dx, Nx in ((3, 37, 100, 8), (2, 50, 200, 16), (4, 33, 130, 32)):
-        x = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
-        dt = (0.01 + 0.1 * torch.rand((Bs, Tx, Dx), generator=gen)).to(dev)
-        A = -torch.exp(torch.randn((Dx, Nx), generator=gen)).to(dev)
-        a3 = (x, dt, A, torch.randn((Bs, Tx, Nx), generator=gen).to(dev),
-              torch.randn((Bs, Tx, Nx), generator=gen).to(dev), torch.randn(Dx, generator=gen).to(dev))
-        gy = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
-        yr, h0r = K3.selective_scan_states_ref(*a3)
-        y2, h0 = K3.selective_scan_fwd_states(*a3)
-        e = max((K3.selective_scan_fwd(*a3) - yr).abs().max().item(), (y2 - yr).abs().max().item())
-        ge = max(((p - q).abs().max() / q.abs().max()).item()
-                 for p, q in zip(K3.selective_scan_bwd(*a3, h0, gy), K3.selective_scan_bwd_ref(*a3, h0r, gy)))
-        phase("K3", f"({Bs}, {Tx}, {Dx}, {Nx}): y max-abs {e:.3e} (bar {1e-4 * max(1.0, yr.abs().max().item()):.3e}), "
-              f"gradients max-abs / max|twin| {ge:.3e} (bar 1e-3)")
-        if not (e <= 1e-4 * max(1.0, yr.abs().max().item()) and ge <= 1e-3):
-            raise AssertionError(f"K3 disagrees with its twins at ({Bs}, {Tx}, {Dx}, {Nx})")
-    for r in k3.values():
-        r["bound_by"] = bound(r, H100_FP32_FLOPS)[1]
-    records.update(k3)
+    # ---- K3a/K3b/K3c: the selective-scan kernels vs their plain twins;
+    # the previous K3c (build/prev, where a call put it) is timed beside K3c
+    prev3 = prev_scan_bwd(prev_scan_build)
+    records.update(scan_phase(gen, dev, prev3))
 
     # ---- the main path: full-width TS-VAD forward through the kernels
+    from speaker_diarization_tpu_torch.kernels import selective_scan as K3
     from speaker_diarization_tpu_torch.models import mamba as MB
+    from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_sequential
 
     wrappers = {"fbank": K1.fbank_cuda, "logmel": K1.logmel_cuda, "cam_block": K2.cam_dense_block_cuda,
                 "selective_scan_fwd": K3.selective_scan_fwd, "selective_scan_fwd_states": K3.selective_scan_fwd_states,
@@ -1072,8 +1174,10 @@ def main() -> int:
           f"{tpm['audio_s_per_s']:.1f} audio-s/s (checksum {tpm['witness']:.6e}, reps {[round(r, 4) for r in tpm['reps_s']]})")
     del mmodel
 
-    # ---- the training path: Mamba TS-VAD train steps (K1, K3b, K3c)
-    from speaker_diarization_tpu_torch.bench import make_train_batches, recipe_trainer, train_throughput
+    # ---- the training path: Mamba TS-VAD train steps (K1, K3b, K3c); the
+    # recipe step is timed with the previous K3c too where build/prev holds
+    # it, in turns (wall from the host, device time from the profiler)
+    from speaker_diarization_tpu_torch.bench import make_train_batches, profile, recipe_trainer, train_throughput
     from speaker_diarization_tpu_torch.train.tasks import make_tsvad_loss
     from speaker_diarization_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -1085,10 +1189,25 @@ def main() -> int:
                                                                   selective_scan_bwd=8), "Mamba")
     phase("train", f"5 steps on one batch (bf16, 64 x 4 s): losses {[round(v, 5) for v in losses]}; "
           f"launches per step {tlaunches}")
-    tt = train_throughput(recipe_trainer(tmodel, n_label), batches, iters=5, reps=3)
+    trainer = recipe_trainer(tmodel, n_label)
+    tt = train_throughput(trainer, batches, iters=5, reps=3)
+    dev_ms = profile(lambda: trainer.train_step(batches[0]))[1]
     phase("throughput", f"TS-VAD-Mamba train step (recipe: adam, poly, bf16, batch 64 x 4 s): "
-          f"{tt['ms_per_step']:.3f} ms/step (loss checksum {tt['witness']:.6e}, reps {[round(r, 4) for r in tt['reps_s']]})")
-    del tmodel, fixed, batches
+          f"{tt['ms_per_step']:.3f} ms/step (loss checksum {tt['witness']:.6e}, reps {[round(r, 4) for r in tt['reps_s']]}), "
+          f"device {dev_ms:.3f} ms/step, busy {dev_ms / tt['ms_per_step']:.3f}")
+    if prev3:
+        turns, cur = {"K3c": [], "previous K3c": []}, K3.selective_scan_bwd
+        for which in ("K3c", "previous K3c", "previous K3c", "K3c"):
+            K3.selective_scan_bwd = cur if which == "K3c" else prev3[0]
+            try:
+                wall = train_throughput(trainer, batches, iters=5, reps=3)["ms_per_step"]
+                turns[which].append((wall, profile(lambda: trainer.train_step(batches[0]))[1]))
+            finally:
+                K3.selective_scan_bwd = cur
+        phase("throughput", "TS-VAD-Mamba train step in turns (K3c, previous, previous, K3c): " + "; ".join(
+            f"{k} {sum(w for w, _ in v) / 2:.3f} ms/step (runs {[round(w, 3) for w, _ in v]}), device "
+            f"{sum(d for _, d in v) / 2:.3f} ms/step (runs {[round(d, 3) for _, d in v]})" for k, v in turns.items()))
+    del tmodel, fixed, batches, trainer
 
     # ---- TS-VAD with BiMamba-2 (SSD) backends, the second hermetic recipe's
     # stages 5-6: d_state 64, expand 2, so 12 heads of P = N = 64; the scan is

@@ -11,10 +11,11 @@
 // h0 (B * n_chunks, N, D) (the JAX layout); K3c takes h0 and dy and returns
 // dx, ddt, dA, dB, dC, dD.
 //
-// exp: every decay is exp2f(dt * A2) with A2 = A * log2(e) pre-scaled once per
-// thread (ex2 on the special-function units, at most 2 ulp); the pre-scaling
-// adds a relative error of about |dt A| * 6e-8 to each decay. The plain twins
-// use torch.exp, so kernel and twin differ by a few ulp per step.
+// exp: every decay is 2^(dt * A2) with A2 = A * log2(e) pre-scaled once per
+// thread (ex2 on the special-function units, at most 2 ulp: exp2f in K3a/K3b,
+// ex2.approx.ftz in K3c); the pre-scaling adds a relative error of about
+// |dt A| * 6e-8 to each decay. The plain twins use torch.exp, so kernel and
+// twin differ by a few ulp per step.
 //
 // What bounds it on the H100: at the main-path shape (B = 256, T = 100,
 // D = 768, N = 64) K3a must move about 249 MB (x, dt, y and Bm, Cm), 0.074 ms
@@ -30,21 +31,38 @@
 //   memory, read by every thread of the block as broadcasts (float4). x and dt
 //   are read with neighbouring threads on neighbouring channels. The main
 //   shape gives 256 x 6 blocks for 132 SMs.
-// - K3c: a warp owns one channel, its lanes split the N states (two per lane
-//   at N = 64); a block holds 16 channels of one batch row. Chunks are walked
-//   in reverse: each chunk's states and decays are recomputed from h0 into
-//   registers (kChunk steps, fully unrolled), then the adjoint runs backward:
+// - K3c: a warp owns two neighbouring channels (kBwdCW), its lanes split the
+//   N states (two per lane at N = 64, so a lane holds 2 x 2); a block of 12
+//   warps holds 24 channels of one batch row, one tile of D (32 tiles at
+//   D = 768). Chunks are walked in reverse. The block copies a chunk's inputs
+//   into shared memory with cp.async (x, dt and dy of its channels over the
+//   chunk's kChunk steps, Bm and Cm, the chunk's h0 slice), the next chunk's
+//   into a second stage while this one runs, so the replay and the adjoint
+//   read only shared memory and registers. Each chunk's states are
+//   recomputed from h0 into registers (kChunk steps, fully unrolled), then
+//   the adjoint runs backward, recomputing each decay:
 //     dh_t  = Cm_t (x) g_t + a_{t+1} . dh_{t+1}
 //     dC_t  = sum_d g_t,d h_t,.,d          dB_t = sum_d dh_t,.,d (dt x)_t,d
 //     dadot = dh_t . a_t . h_{t-1}         ddt_t,d = sum_n dadot A + (sum_n Bm dh) x
 //     dx_t  = dt_t (sum_n Bm dh) + Dp g_t   dA += dadot dt,  dD += g x
-//   Sums over n are warp shuffles. Sums over d: the block's 16 warps meet in
-//   shared memory every kSub steps and one thread per (step, n) adds them in
-//   a fixed order, writing one partial per 16-channel tile; dA and dD are
+//   Sums over n are off the adjoint's chain: a lane's partial sums of dadot A
+//   and Bm dh enter a reduce-scatter over the warp level by level as the
+//   steps come (16 + 8 + 4 + 2 + 1 shuffles a chunk and channel, against 10
+//   a step on the chain before), which leaves step s's two sums in lanes s
+//   and 16 + s; lane s puts ddt and dx into a tile that the block stores
+//   coalesced. Sums over d: a lane adds its two channels' dB and dC
+//   terms, each warp writes the chunk's sums into shared memory (96 KB at
+//   N = 64), and after one barrier a chunk each thread adds the 12 warps in
+//   order for four (step, n), writing one partial per tile; dA and dD are
 //   per-(batch row) partials. A second pass (sum_rows_kernel) adds the
-//   partials in a fixed order, so no atomics: the result does not change
-//   from run to run (the TPU kernel's "zero on grid step (0, 0), accumulate
-//   across the grid" needs an ordered grid and is not copied).
+//   partials in a fixed order. Every sum has a fixed order and there are no
+//   atomics, so the result does not change from run to run (the TPU
+//   kernel's "zero on grid step (0, 0), accumulate across the grid" needs an
+//   ordered grid and is not copied). chip_smoke.py times the previous K3c
+//   (one warp per channel reading device memory at every step, two warp sums
+//   a step on the chain, an exchange every 8 steps, 48 tiles) beside this
+//   one, built from build/prev/selective_scan.cu where that holds the file as
+//   of e35add6.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -55,8 +73,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kFwdThreads = 128;  // K3a/K3b: channels per block
 constexpr int kTimeTile = 32;     // K3a/K3b: steps of Bm, Cm staged in shared memory
 constexpr int kChunk = 16;        // K3b/K3c: steps per saved state
-constexpr int kBwdWarps = 16;     // K3c: channels per block, one warp each
-constexpr int kSub = 8;           // K3c: steps between the block's dB/dC exchanges
+constexpr int kBwdWarps = 12;     // K3c: warps per block (168 registers a thread)
+constexpr int kBwdCW = 2;         // K3c: channels per warp
+constexpr int kBwdCh = kBwdWarps * kBwdCW;  // K3c: channels per block, one tile of D
 
 template <int N, bool kStates>
 __global__ void __launch_bounds__(kFwdThreads)
@@ -124,8 +143,105 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 2^v on the special-function unit (ex2.approx.ftz: at most 2 ulp; a decay
+// below 2^-126 becomes 0), for every decay of K3c.
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// K consecutive floats p[0 .. K) of a lane, one 64-bit access at K = 2.
+template <int K>
+__device__ __forceinline__ void load_lane(const float* p, float (&v)[K]) {
+  if constexpr (K == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = p[j];
+  }
+}
+template <int K>
+__device__ __forceinline__ void store_lane(float* p, const float (&v)[K]) {
+  if constexpr (K == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) p[j] = v[j];
+  }
+}
+
+// One step of a reduce-scatter over the warp: of the pair (lo, hi) a lane
+// keeps the value its bit W selects and adds its partner's copy of it.
+template <int W>
+__device__ __forceinline__ float rs_pair(float lo, float hi, int lane) {
+  const bool up = lane & W;
+  return (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, W);
+}
+
+// 4-byte cp.async into shared memory; `ok` false fills the word with 0
+// (src is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+
+// K3c's shared memory, in floats: two stages of one chunk's inputs, then the
+// chunk's per-warp dB/dC terms and the ddt/dx tile.
 template <int N>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+struct BwdSmem {
+  static constexpr int kHP = kBwdCh + 1;                    // padded row of the staged h0
+  static constexpr int kCh = kChunk * kBwdCh;               // one [kChunk][kBwdCh] array
+  static constexpr int kX = 0, kDt = kCh, kG = 2 * kCh;     // x, dt, dy of the block's channels
+  static constexpr int kB = 3 * kCh, kC = kB + kChunk * N;  // Bm, Cm [kChunk][N]
+  static constexpr int kH = kC + kChunk * N;                // h0 [N][kHP]
+  static constexpr int kStage = kH + N * kHP;
+  static constexpr int kdB = 2 * kStage;                    // [kBwdWarps][kChunk][N]
+  static constexpr int kdC = kdB + kBwdWarps * kChunk * N;  // [kBwdWarps][kChunk][N]
+  static constexpr int kOut = kdC + kBwdWarps * kChunk * N; // [2][kChunk][kBwdCh]: ddt, dx
+  static constexpr int kTotal = kOut + 2 * kCh;
+  static_assert(kStage % 2 == 0 && kdB % 4 == 0 && kdC % 4 == 0, "64-bit and 128-bit shared accesses");
+};
+
+// Copy chunk c's inputs for channels d0 .. d0 + kBwdCh - 1 into `buf`
+// (zeros past T and past D), as one cp.async group of the caller's.
+template <int N>
+__device__ __forceinline__ void stage_chunk(float* buf, const float* x, const float* dt, const float* g,
+                                            const float* Bm, const float* Cm, const float* h0, int b, int c,
+                                            int T, int D, int n_chunks, int d0) {
+  using L = BwdSmem<N>;
+  const int tc = c * kChunk;
+  const size_t row = (size_t)b * T;
+  for (int i = threadIdx.x; i < 3 * L::kCh; i += kBwdWarps * 32) {
+    const int a = i / L::kCh, r = i - a * L::kCh, s = r / kBwdCh, dd = d0 + r - s * kBwdCh;
+    const float* src = a == 0 ? x : (a == 1 ? dt : g);
+    const bool ok = tc + s < T && dd < D;
+    cp_async4(buf + i, ok ? src + (row + tc + s) * D + dd : src, ok);
+  }
+  for (int i = threadIdx.x; i < 2 * kChunk * N; i += kBwdWarps * 32) {
+    const int a = i / (kChunk * N), r = i - a * kChunk * N;
+    const float* src = a == 0 ? Bm : Cm;
+    const bool ok = tc + r / N < T;
+    cp_async4(buf + L::kB + i, ok ? src + (row + tc) * N + r : src, ok);
+  }
+  const float* hc = h0 + ((size_t)b * n_chunks + c) * N * D;
+  for (int i = threadIdx.x; i < N * kBwdCh; i += kBwdWarps * 32) {
+    const int n = i / kBwdCh, w = i - n * kBwdCh;
+    const bool ok = d0 + w < D;
+    cp_async4(buf + L::kH + n * L::kHP + w, ok ? hc + (size_t)n * D + d0 + w : hc, ok);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
 scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ Dp,
@@ -134,126 +250,178 @@ scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 float* __restrict__ dB_part, float* __restrict__ dC_part,
                 float* __restrict__ dA_part, float* __restrict__ dD_part,
                 int T, int D, int n_chunks) {
-  constexpr int NPL = (N + 31) / 32;  // states per lane
-  extern __shared__ float smem[];
-  float* sdB = smem;                           // [kBwdWarps][kSub][N]
-  float* sdC = smem + kBwdWarps * kSub * N;    // [kBwdWarps][kSub][N]
+  using L = BwdSmem<N>;
+  constexpr int CW = kBwdCW;
+  constexpr int NPL = (N + 31) / 32;  // states per lane: n0 .. n0 + NPL - 1
+  static_assert(NPL <= 2 && N % NPL == 0, "N is 8, 16, 32 or 64");
+  static_assert(kChunk == 16, "the reduce-scatter gives each lane one of the chunk's 2 x 16 sums");
+  extern __shared__ __align__(16) float smem[];
+  float* sdB = smem + L::kdB;
+  float* sdC = smem + L::kdC;
+  float* sout = smem + L::kOut;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y, n_batch = gridDim.y;
   const int tile = blockIdx.x;
-  const int d = tile * kBwdWarps + warp;
-  const bool active = d < D;
+  const int d0 = tile * kBwdCh, w0 = warp * CW;  // the warp's channels: d0 + w0 .. d0 + w0 + CW - 1
   const size_t row = (size_t)b * T;
+  const int n0 = lane * NPL;
+  const bool has = n0 < N;  // lanes past N (N < 32) hold zeros
 
-  bool has[NPL];
-  float Av[NPL], A2[NPL], dh[NPL], dA[NPL];
+  float Av[CW][NPL], A2[CW][NPL], dh[CW][NPL], dA[CW][NPL], skip[CW], dD[CW];
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int n = lane + 32 * j;
-    has[j] = active && n < N;
-    Av[j] = has[j] ? A[(size_t)d * N + n] : 0.f;
-    A2[j] = Av[j] * kLog2e;
-    dh[j] = 0.f;
-    dA[j] = 0.f;
+  for (int c = 0; c < CW; ++c) {
+    const int d = d0 + w0 + c;
+#pragma unroll
+    for (int j = 0; j < NPL; ++j) {
+      Av[c][j] = d < D && has ? A[(size_t)d * N + n0 + j] : 0.f;
+      A2[c][j] = Av[c][j] * kLog2e;
+      dh[c][j] = 0.f;
+      dA[c][j] = 0.f;
+    }
+    skip[c] = d < D ? Dp[d] : 0.f;
+    dD[c] = 0.f;  // lane s < kChunk: sum of dy x over step s of every chunk
   }
-  const float skip = active ? Dp[d] : 0.f;
-  float dD = 0.f;
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int tc = c * kChunk;
-    // replay the chunk from its initial state; steps past T have dt = 0 and
-    // Bm = 0, so they leave the state as it is (decay 1, no input)
-    float hent[NPL], hs[kChunk][NPL], as[kChunk][NPL];
+  stage_chunk<N>(smem + ((n_chunks - 1) & 1) * L::kStage, x, dt, g, Bm, Cm, h0, b, n_chunks - 1, T, D,
+                 n_chunks, d0);
+  cp_async_commit();
+  for (int ck = n_chunks - 1; ck >= 0; --ck) {
+    const int tc = ck * kChunk;
+    // prefetch the chunk walked next into the other stage (read by chunk
+    // ck + 1, which every thread finished before the last barrier)
+    if (ck > 0)
+      stage_chunk<N>(smem + ((ck - 1) & 1) * L::kStage, x, dt, g, Bm, Cm, h0, b, ck - 1, T, D, n_chunks, d0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* buf = smem + (ck & 1) * L::kStage;
+    const float* sx = buf + L::kX + w0;
+    const float* sdt = buf + L::kDt + w0;
+    const float* sg = buf + L::kG + w0;
+    const float* sB = buf + L::kB;
+    const float* sC = buf + L::kC;
+
+    // replay the chunk from its initial state: hs[s + 1] after step s; steps
+    // past T have dt = 0 and Bm = 0 (staged zeros), so they keep the state
+    // (decay 1, no input). The adjoint recomputes each decay (the same
+    // instruction on the same inputs): registers hold the states, not both.
+    float hs[kChunk + 1][CW][NPL];
 #pragma unroll
-    for (int j = 0; j < NPL; ++j)
-      hent[j] = has[j] ? h0[((size_t)b * n_chunks + c) * N * D + (size_t)(lane + 32 * j) * D + d] : 0.f;
+    for (int c = 0; c < CW; ++c)
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) hs[0][c][j] = has ? buf[L::kH + (n0 + j) * L::kHP + w0 + c] : 0.f;
 #pragma unroll
     for (int s = 0; s < kChunk; ++s) {
-      const int t = tc + s;
-      const bool live = active && t < T;
-      float dv = 0.f, xv = 0.f;
-      if (live) {
-        dv = dt[(row + t) * D + d];
-        xv = x[(row + t) * D + d];
-      }
+      float dv[CW], xv[CW], bn[NPL] = {};
+      load_lane<CW>(sdt + s * kBwdCh, dv);
+      load_lane<CW>(sx + s * kBwdCh, xv);
+      if (has) load_lane<NPL>(sB + s * N + n0, bn);
 #pragma unroll
-      for (int j = 0; j < NPL; ++j) {
-        const float bn = (live && has[j]) ? Bm[(row + t) * N + lane + 32 * j] : 0.f;
-        const float a = exp2f(dv * A2[j]);
-        const float hp = s > 0 ? hs[s - 1][j] : hent[j];
-        hs[s][j] = a * hp + bn * (dv * xv);
-        as[s][j] = a;
+      for (int c = 0; c < CW; ++c) {
+        const float dtx = dv[c] * xv[c];
+#pragma unroll
+        for (int j = 0; j < NPL; ++j) {
+          hs[s + 1][c][j] = ex2_approx(dv[c] * A2[c][j]) * hs[s][c][j] + bn[j] * dtx;
+        }
       }
     }
-    // the adjoint, backward through the chunk, kSub steps at a time
+    // the adjoint, backward through the chunk. A lane adds its channels'
+    // dB and dC terms, and passes its partial sums over its states of dadot
+    // A and Bm dh into a reduce-scatter over the warp, level by level as its
+    // inputs come: level 16 pairs the step's two sums, level W < 16 pairs
+    // steps s and s + W once both have passed level 2W. After step 0 lane l
+    // holds in v[c][0] step (l % 16)'s whole sum of dadot A (l < 16) or of
+    // Bm dh (l >= 16)
+    float v[CW][kChunk];
 #pragma unroll
-    for (int sb = kChunk / kSub - 1; sb >= 0; --sb) {
+    for (int s = kChunk - 1; s >= 0; --s) {
+      float gv[CW], dv[CW], xv[CW], bn[NPL] = {}, cn[NPL] = {}, tdb[NPL], tdc[NPL];
+      load_lane<CW>(sg + s * kBwdCh, gv);
+      load_lane<CW>(sdt + s * kBwdCh, dv);
+      load_lane<CW>(sx + s * kBwdCh, xv);
+      if (has) {
+        load_lane<NPL>(sB + s * N + n0, bn);
+        load_lane<NPL>(sC + s * N + n0, cn);
+      }
 #pragma unroll
-      for (int k = kSub - 1; k >= 0; --k) {
-        const int s = sb * kSub + k;
-        const int t = tc + s;
-        const bool live = active && t < T;
-        float dv = 0.f, xv = 0.f, gv = 0.f;
-        if (live) {
-          const size_t off = (row + t) * D + d;
-          dv = dt[off];
-          xv = x[off];
-          gv = g[off];
-        }
+      for (int c = 0; c < CW; ++c) {
+        const float dtx = dv[c] * xv[c];
         float sum_adot = 0.f, sum_bdh = 0.f;
 #pragma unroll
         for (int j = 0; j < NPL; ++j) {
-          const int n = lane + 32 * j;
-          float bn = 0.f, cn = 0.f;
-          if (live && has[j]) {
-            bn = Bm[(row + t) * N + n];
-            cn = Cm[(row + t) * N + n];
-          }
-          dh[j] += cn * gv;
-          const float hp = s > 0 ? hs[s - 1][j] : hent[j];
-          const float adot = dh[j] * as[s][j] * hp;
-          sum_adot += adot * Av[j];
-          sum_bdh += bn * dh[j];
-          dA[j] += adot * dv;
-          if (n < N) {
-            sdB[(warp * kSub + k) * N + n] = dh[j] * (dv * xv);
-            sdC[(warp * kSub + k) * N + n] = gv * hs[s][j];
-          }
-          dh[j] *= as[s][j];
+          const float a = ex2_approx(dv[c] * A2[c][j]);
+          dh[c][j] += cn[j] * gv[c];
+          const float adot = dh[c][j] * a * hs[s][c][j];
+          sum_adot += adot * Av[c][j];
+          sum_bdh += bn[j] * dh[c][j];
+          dA[c][j] += adot * dv[c];
+          const float eb = dh[c][j] * dtx, ec = gv[c] * hs[s + 1][c][j];
+          tdb[j] = c == 0 ? eb : tdb[j] + eb;
+          tdc[j] = c == 0 ? ec : tdc[j] + ec;
+          dh[c][j] *= a;
         }
-        sum_adot = warp_sum(sum_adot);
-        sum_bdh = warp_sum(sum_bdh);
-        if (live && lane == 0) {
-          const size_t off = (row + t) * D + d;
-          ddt[off] = sum_adot + sum_bdh * xv;
-          dx[off] = sum_bdh * dv + skip * gv;
-        }
-        dD += gv * xv;
+        float r = rs_pair<16>(sum_adot, sum_bdh, lane);
+        if (s < 8) r = rs_pair<8>(r, v[c][(s + 8) % kChunk], lane);
+        if (s < 4) r = rs_pair<4>(r, v[c][(s + 4) % kChunk], lane);
+        if (s < 2) r = rs_pair<2>(r, v[c][(s + 2) % kChunk], lane);
+        if (s < 1) r = rs_pair<1>(r, v[c][(s + 1) % kChunk], lane);
+        v[c][s] = r;
       }
-      __syncthreads();
-      // this tile's partial of dB and dC for the kSub steps, warps in order
-      for (int i = threadIdx.x; i < kSub * N; i += kBwdWarps * 32) {
-        const int k = i / N, n = i - k * N;
-        const int t = tc + sb * kSub + k;
-        if (t < T) {
-          float vb = 0.f, vc = 0.f;
-          for (int w = 0; w < kBwdWarps; ++w) {
-            vb += sdB[(w * kSub + k) * N + n];
-            vc += sdC[(w * kSub + k) * N + n];
-          }
-          const size_t o = (((size_t)tile * n_batch + b) * T + t) * N + n;
-          dB_part[o] = vb;
-          dC_part[o] = vc;
-        }
+      if (has) {
+        store_lane<NPL>(sdB + (warp * kChunk + s) * N + n0, tdb);
+        store_lane<NPL>(sdC + (warp * kChunk + s) * N + n0, tdc);
       }
-      __syncthreads();
+    }
+    float bdh[CW];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) bdh[c] = __shfl_down_sync(0xffffffffu, v[c][0], kChunk);
+    if (lane < kChunk) {  // lane s: step s's ddt and dx into the tile
+      float gv[CW], dv[CW], xv[CW], o_dt[CW], o_x[CW];
+      load_lane<CW>(sg + lane * kBwdCh, gv);
+      load_lane<CW>(sdt + lane * kBwdCh, dv);
+      load_lane<CW>(sx + lane * kBwdCh, xv);
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        o_dt[c] = v[c][0] + bdh[c] * xv[c];
+        o_x[c] = bdh[c] * dv[c] + skip[c] * gv[c];
+        dD[c] += gv[c] * xv[c];
+      }
+      store_lane<CW>(sout + lane * kBwdCh + w0, o_dt);
+      store_lane<CW>(sout + L::kCh + lane * kBwdCh + w0, o_x);
+    }
+    __syncthreads();
+    // this tile's partial of dB and dC for the chunk, warps in order, four
+    // states a thread
+    for (int i = threadIdx.x; i < 2 * kChunk * N / 4; i += kBwdWarps * 32) {
+      const int a = i / (kChunk * N / 4), q = 4 * i - a * kChunk * N, s = q / N;
+      if (tc + s < T) {
+        const float* src = (a == 0 ? sdB : sdC) + q;
+        float4 acc = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+        for (int w = 1; w < kBwdWarps; ++w) {
+          const float4 u = *reinterpret_cast<const float4*>(src + w * kChunk * N);
+          acc.x += u.x;
+          acc.y += u.y;
+          acc.z += u.z;
+          acc.w += u.w;
+        }
+        float* part = a == 0 ? dB_part : dC_part;
+        *reinterpret_cast<float4*>(part + (((size_t)tile * n_batch + b) * T + tc) * N + q) = acc;
+      }
+    }
+    for (int i = threadIdx.x; i < 2 * L::kCh; i += kBwdWarps * 32) {
+      const int a = i / L::kCh, r = i - a * L::kCh, s = r / kBwdCh, dd = d0 + r - s * kBwdCh;
+      if (tc + s < T && dd < D) (a == 0 ? ddt : dx)[(row + tc + s) * D + dd] = sout[i];
     }
   }
-  if (active) {
 #pragma unroll
-    for (int j = 0; j < NPL; ++j)
-      if (has[j]) dA_part[((size_t)b * D + d) * N + lane + 32 * j] = dA[j];
-    if (lane == 0) dD_part[(size_t)b * D + d] = dD;
+  for (int c = 0; c < CW; ++c) {
+    const int d = d0 + w0 + c;
+    const float sum = warp_sum(dD[c]);
+    if (d < D) {
+      if (has) store_lane<NPL>(dA_part + ((size_t)b * D + d) * N + n0, dA[c]);
+      if (lane == 0) dD_part[(size_t)b * D + d] = sum;
+    }
   }
 }
 
@@ -293,9 +461,9 @@ cudaError_t launch_bwd(const float* x, const float* dt, const float* A, const fl
                        float* dx, float* ddt, float* dA, float* dB, float* dC, float* dD,
                        float* dA_part, float* dD_part, float* dB_part, float* dC_part, int batch,
                        int T, int D, cudaStream_t stream) {
-  const int tiles = (D + kBwdWarps - 1) / kBwdWarps;
+  const int tiles = (D + kBwdCh - 1) / kBwdCh;
   const int n_chunks = (T + kChunk - 1) / kChunk;
-  const size_t smem = sizeof(float) * 2 * kBwdWarps * kSub * N;
+  const size_t smem = sizeof(float) * BwdSmem<N>::kTotal;
   cudaError_t err = cudaFuncSetAttribute(scan_bwd_kernel<N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -317,7 +485,7 @@ const char* sdt_cuda_error_string(int code) { return cudaGetErrorString((cudaErr
 
 int sdt_selective_scan_chunk() { return kChunk; }
 
-int sdt_selective_scan_bwd_tiles(int D) { return (D + kBwdWarps - 1) / kBwdWarps; }
+int sdt_selective_scan_bwd_tiles(int D) { return (D + kBwdCh - 1) / kBwdCh; }
 
 // K3a (h0 == NULL) and K3b (h0 of (batch * ceil(T / kChunk), N, D)).
 int sdt_selective_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,

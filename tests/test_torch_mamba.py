@@ -110,6 +110,30 @@ def test_bwd_twin_multichunk_carry():
             np.testing.assert_allclose(g, np.asarray(r), atol=3e-4, rtol=3e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("ref", ["fused", "assoc"])
+def test_bwd_twin_at_the_kernel_shape_family(ref):
+    """K3c's twin at the main path's state size and length, which the card
+    holds K3c to: N = 64, T = 100 (6 chunks of 16 and a 4-step tail), A =
+    -(1..N) and Δ = softplus(randn - 2) as chip_smoke.py draws them; every
+    gradient within the smoke's bar, 1e-3 · max|JAX gradient|, of jax.grad
+    of the fused Pallas scan (interpret) or of the associative scan."""
+    rng = np.random.default_rng(11)
+    B, T, D, N = 2, 100, 32, 64
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    delta = np.log1p(np.exp(rng.standard_normal((B, T, D)) - 2.0)).astype(np.float32)
+    A = -np.tile(np.arange(1, N + 1, dtype=np.float32), (D, 1))
+    Bm, C = (rng.standard_normal((B, T, N)).astype(np.float32) for _ in range(2))
+    Dp = (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    args = (x, delta, A, Bm, C, Dp)
+    got = _port_grads(args, K3.CHUNK)
+    want = _jax_grads(jssp.selective_scan_fused if ref == "fused" else j_assoc, args)
+    for name, g, r in zip(NAMES, got, want):
+        r = np.asarray(r)
+        assert g.shape == r.shape, name
+        err, bar = np.abs(g - r).max(), 1e-3 * np.abs(r).max()
+        assert err <= bar, f"{name}: max-abs {err:.3e} > {bar:.3e}"
+
+
 def test_selective_scan_fn_grads_match_autograd_of_sequential():
     """SelectiveScanFn (K3b twin forward, K3c twin backward) against
     torch.autograd through the sequential twin, in float64."""
