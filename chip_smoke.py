@@ -9,15 +9,18 @@ FCM head) against its plain PyTorch twin on the card at the shapes of the
 main paths (K4 also against the cuDNN head it replaces; K2 run twice must
 give the same bits; K2 also at the input widths of shallower encoders, and
 bf16 TS-VAD forwards with them; K1 and K1′ run twice must give the same bits,
-and ptxas's registers and spills of each K1 instance are printed; K3c run
-twice must give the same bits, and ptxas's registers and spills of each K3c
-instance are printed). Where build/prev/{cam_block,fcm}.cu hold K2 and K4 as
-of commit 8cf507d, where build/prev/fbank.cu holds K1/K1′ as of commit
-2eeeb87 and where build/prev/selective_scan.cu holds K3c as of commit
-e35add6 (copied there from git for a call; build/ is not committed; each
-optional, checked by git blob id), they are built and timed beside the
-current ones. It then drives, each with the launch counts set to 0 just
-before and read just after:
+also at 48 kHz (n_fft 2048), and ptxas's registers and spills of each K1
+instance are printed; K3a and K3c run twice must give the same bits, K3a's y
+and K3b's y must be equal bit for bit, no K3a/K3b instance may spill, and
+ptxas's registers and spills of each K3 instance and the SASS instruction mix
+of the forward at d_state 64 are printed). Where build/prev/{cam_block,fcm}.cu
+hold K2 and K4 as of commit 8cf507d, where build/prev/fbank.cu holds K1/K1′
+as of commit 2eeeb87 and where build/prev/selective_scan.cu holds K3a/K3b/K3c
+as of commit e35add6 (copied there from git for a call; build/ is not
+committed; each optional, checked by git blob id), they are built and timed
+beside the current ones, and the Mamba forward (K3a) and train step (K3b,
+then K3c) are timed with each previous scan kernel in turns. It then drives,
+each with the launch counts set to 0 just before and read just after:
 - the full-width TS-VAD forward (TSVADConfig(), bf16, batch 64 × 4 s, seeded
   random weights): fbank 1, cam_block 3, fcm 1;
 - the same with BiMamba backends (d_state 64): fbank 1, cam_block 3, fcm 1,
@@ -192,10 +195,12 @@ def prev_kernels():
 
 
 # the git blob ids of the previous sources that build/prev may hold, the
-# only versions whose C interfaces prev_fbank and prev_scan_bwd call:
-# fbank.cu at 2eeeb87 (the radix-2 K1/K1′, one CTA per 8 frames) and
+# only versions whose C interfaces prev_fbank and prev_scan call: fbank.cu
+# at 2eeeb87 (the radix-2 K1/K1′, one CTA per 8 frames) and
 # selective_scan.cu at e35add6, unchanged since cb35afa (K3c with one warp
-# per channel, reading its inputs from device memory at every step)
+# per channel, reading its inputs from device memory at every step; K3a/K3b
+# reading x and dt from device memory at every step, exp2f, the h0 test in
+# the step loop, as through 8efc171)
 PREV_BUILDS = {"fbank": ("2eeeb87", "09f7470c5770cf6754f83f3f3b4fe769b9a19a99"),
                "selective_scan": ("e35add6", "53f07f44c381e6e20bc2fdc32abea960623df257")}
 
@@ -239,16 +244,61 @@ def finish_prev(started):
     return lib, log
 
 
+def _instance(kernel, line):
+    """The template arguments ("64" or "64, true") of the instance of
+    `kernel<int>` or `kernel<int, bool>` whose mangled name is in `line`, or None."""
+    m = re.search(rf"{kernel}ILi(\d+)E(?:Lb([01])E)?", line)
+    return m and m.group(1) + ("" if m.group(2) is None else ", " + ("false", "true")[int(m.group(2))])
+
+
+def _by_instance(d):
+    return dict(sorted(d.items(), key=lambda kv: (int(kv[0].split(",")[0]), kv[0])))
+
+
 def ptxas_props(log, kernel):
-    """{first template argument: ptxas's register and spill lines} of each
-    instance of `kernel` (its mangled name, e.g. `kernel<64>`) in an nvcc log."""
+    """{template arguments: ptxas's register and spill lines} of each
+    instance of `kernel` in an nvcc log."""
     props, inst = {}, None
     for line in log.splitlines():
-        m = re.search(rf"(?:Compiling entry function|Function properties for) '?[\w$]*{kernel}ILi(\d+)E", line)
-        inst = m.group(1) if m else (None if "entry function" in line or "properties for" in line else inst)
+        if "entry function" in line or "properties for" in line:
+            inst = _instance(kernel, line)
         if inst and re.search(r"registers|spill", line):
             props.setdefault(inst, []).append(line.split(":", 1)[-1].strip())
-    return dict(sorted(props.items(), key=lambda kv: int(kv[0])))
+    return _by_instance(props)
+
+
+def sass_mix(so, kernel, hot="MUFU.EX2"):
+    """{template arguments: (opcode counts of the whole function, opcode
+    counts of its straight-line run between two branches that holds the
+    most `hot` instructions)} of each instance of `kernel` in the SASS of
+    the library `so` (cuobjdump, beside nvcc), or {} where there is no
+    cuobjdump. The run is an unrolled loop body: its counts over its `hot`
+    count are the instructions an element costs."""
+    from speaker_diarization_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    code, inst = {}, None
+    for line in subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True).stdout.splitlines():
+        if "Function :" in line:
+            inst = _instance(kernel, line)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inst and m:
+            code.setdefault(inst, []).append(m.group(1))
+    mixes = {}
+    for inst, ops in code.items():
+        runs, run = [], []
+        for op in ops:
+            run.append(op)
+            if op.startswith("BRA"):
+                runs.append(run)
+                run = []
+        runs.append(run)
+        count = lambda seq: {op: seq.count(op) for op in sorted(set(seq))}  # noqa: E731
+        mixes[inst] = (count(ops), count(max(runs, key=lambda r: r.count(hot))))
+    return _by_instance(mixes)
 
 
 def prev_fbank(started):
@@ -300,9 +350,10 @@ def prev_fbank(started):
     return {"fbank": fbank, "logmel": logmel}
 
 
-def prev_scan_bwd(started):
-    """The previous K3c from `start_prev("selective_scan")`'s build, or None:
-    (fn with the current wrapper's arguments and results, nvcc's log)."""
+def prev_scan(started):
+    """The previous K3a, K3b and K3c from `start_prev("selective_scan")`'s
+    build, or None: {"fwd", "fwd_states", "bwd": fn with the current
+    wrapper's arguments and results, "log": nvcc's log, "so": the library}."""
     import ctypes
 
     import torch
@@ -318,6 +369,21 @@ def prev_scan_bwd(started):
     lib.sdt_selective_scan_bwd_tiles.argtypes = [I]
     lib.sdt_selective_scan_bwd.restype = I
     lib.sdt_selective_scan_bwd.argtypes = [P] * 18 + [I] * 4 + [P]
+    lib.sdt_selective_scan_fwd.restype = I
+    lib.sdt_selective_scan_fwd.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.sdt_selective_scan_chunk.restype = I
+    lib.sdt_selective_scan_chunk.argtypes = []
+
+    def scan_fwd(x, delta, A, Bm, C, D, states=False):
+        Bsz, T, Dd = x.shape
+        N = A.shape[1]
+        y = torch.empty_like(x)
+        h0 = x.new_empty((Bsz * -(-T // lib.sdt_selective_scan_chunk()), N, Dd)) if states else None
+        code = lib.sdt_selective_scan_fwd(*[t.data_ptr() for t in (x, delta, A, Bm, C, D, y)],
+                                          None if h0 is None else h0.data_ptr(), Bsz, T, Dd, N,
+                                          torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, code, "previous selective_scan_fwd")
+        return (y, h0) if states else y
 
     def scan_bwd(x, delta, A, Bm, C, D, h0, g):
         Bsz, T, Dd = x.shape
@@ -333,7 +399,8 @@ def prev_scan_bwd(started):
         _build.check(lib, code, "previous selective_scan_bwd")
         return dx, ddt, dA, dB, dC, dD
 
-    return scan_bwd, built[1]
+    return {"fwd": scan_fwd, "fwd_states": lambda *a: scan_fwd(*a, states=True), "bwd": scan_bwd, "log": built[1],
+            "so": started[1]}
 
 
 def graph_ms(fn, iters=20, reps=5):
@@ -375,33 +442,53 @@ def paired_ms(fn, prev_fn, timer=graph_ms):
     return (a + a2) / 2, (b + b2) / 2
 
 
-def scan_phase(gen, dev, prev_bwd=None):
+def scan_phase(gen, dev, prev=None):
     """K3a/K3b/K3c against their plain twins (fp32) at the Mamba main path's
     two shapes, T = 100, d_inner 768, d_state 64: the single backend's
     B·S = 256 rows and the multi backend's 64. Each forward or train step
     launches each kernel 4 times at each shape, so the records are per
     forward (K3a) or per train step (K3b, K3c). Bars: y and h0 within
     1e-4 · max(1, max|twin|) (a few ulp of exp per step over 100 steps);
-    each gradient within 1e-3 · max|twin gradient| (dA and dD sum 25,600
-    rows in another order); two K3c runs must give the same bits. Then the
-    ragged shapes (T not a multiple of the chunk or the time tile, d_inner
-    not a multiple of the block) at every built d_state. `prev_bwd` is
-    `prev_scan_bwd`'s (fn, nvcc log) or None: the previous K3c, timed
-    beside K3c in turns. → records of the three kernels."""
+    K3a's y and K3b's y bitwise equal (one template); each gradient within
+    1e-3 · max|twin gradient| (dA and dD sum 25,600 rows in another order);
+    two K3a and two K3c runs must give the same bits; ptxas must report no
+    spills for any scan_fwd_kernel instance. Then the ragged shapes (T not a
+    multiple of the chunk, d_inner not a multiple of the block; inputs one
+    float past a 16-byte boundary) at every built d_state, y, h0 and the
+    gradients. `prev` is `prev_scan`'s dict or
+    None: the previous K3a, K3b and K3c, each timed beside its current
+    kernel in turns. → records of the three kernels."""
     import torch
 
     from speaker_diarization_tpu_torch.kernels import _build
     from speaker_diarization_tpu_torch.kernels import selective_scan as K3
     from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_sequential
 
-    phase("prev", "the previous K3c built from build/prev/selective_scan.cu for timing" if prev_bwd else
-          "no build/prev/selective_scan.cu: the previous K3c is not timed")
-    for what, log in (("", _build.build_log("selective_scan")), ("previous ", prev_bwd[1] if prev_bwd else "")):
-        for inst, lines in ptxas_props(log, "scan_bwd_kernel").items():
-            phase("K3", f"{what}scan_bwd_kernel<{inst}>: {' | '.join(lines)}")
-    k3 = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0, exps=0.0)
-          for k in ("selective_scan_fwd", "selective_scan_fwd_states", "selective_scan_bwd")}
-    k3["selective_scan_bwd"]["prev_ms"] = 0.0 if prev_bwd else None
+    phase("prev", "the previous K3a/K3b/K3c built from build/prev/selective_scan.cu for timing" if prev else
+          "no build/prev/selective_scan.cu: the previous K3a/K3b/K3c are not timed")
+    for what, log in (("", _build.build_log("selective_scan")), ("previous ", prev["log"] if prev else "")):
+        for kernel in ("scan_fwd_kernel", "scan_bwd_kernel"):
+            for inst, lines in ptxas_props(log, kernel).items():
+                phase("K3", f"{what}{kernel}<{inst}>: {' | '.join(lines)}")
+    # the forward's instructions an element at d_state 64: the step loop's
+    # body (its longest straight run, one MUFU.EX2 a (t, d, n) element), each
+    # opcode's count over its MUFU.EX2 count; and the whole function's
+    for what, so in (("", _build._so_path("selective_scan")), ("previous ", prev["so"] if prev else None)):
+        for inst, (ops, body) in (sass_mix(so, "scan_fwd_kernel") if so else {}).items():
+            n_exp = body.get("MUFU.EX2", 0)
+            if inst.startswith("64,") and n_exp:
+                top = sorted(body.items(), key=lambda kv: -kv[1])[:12]
+                phase("K3", f"{what}scan_fwd_kernel<{inst}> SASS: the step loop's body holds {n_exp} MUFU.EX2 and "
+                      f"{sum(body.values())} instructions, {sum(body.values()) / n_exp:.2f} an element: "
+                      + ", ".join(f"{op} {c / n_exp:.2f}" for op, c in top)
+                      + f"; the function {sum(ops.values())} instructions, {ops.get('MUFU.EX2', 0)} MUFU.EX2")
+    fwd_props = ptxas_props(_build.build_log("selective_scan"), "scan_fwd_kernel")
+    if len(fwd_props) != 2 * len(K3.STATE_SIZES) or any(
+            re.search(r"\b[1-9]\d* bytes spill", line) for lines in fwd_props.values() for line in lines):
+        raise AssertionError(f"scan_fwd_kernel instances spill or are missing: {fwd_props}")
+    keys = ("selective_scan_fwd", "selective_scan_fwd_states", "selective_scan_bwd")
+    k3 = {k: dict(ms=0.0, prev_ms=0.0 if prev else None, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0.0, flops=0.0,
+                  exps=0.0) for k in keys}
     T3, D3, N3 = 100, 768, 64
     for Bs in (256, 64):
         x = torch.randn((Bs, T3, D3), generator=gen).to(dev)
@@ -413,6 +500,7 @@ def scan_phase(gen, dev, prev_bwd=None):
         gy = torch.randn((Bs, T3, D3), generator=gen).to(dev)
         a3 = (x, dt, A, Bm, C, Dp)
         y = K3.selective_scan_fwd(*a3)
+        y_again = K3.selective_scan_fwd(*a3)
         y2, h0 = K3.selective_scan_fwd_states(*a3)
         yr, h0r = K3.selective_scan_states_ref(*a3)
         grads = K3.selective_scan_bwd(*a3, h0, gy)
@@ -420,40 +508,52 @@ def scan_phase(gen, dev, prev_bwd=None):
         grads_r = K3.selective_scan_bwd_ref(*a3, h0r, gy)
         torch.cuda.synchronize()
         same = all(torch.equal(p, q) for p, q in zip(grads, again))
+        same_fwd, same_ab = torch.equal(y, y_again), torch.equal(y, y2)
         y_bar, h_bar = 1e-4 * max(1.0, yr.abs().max().item()), 1e-4 * max(1.0, h0r.abs().max().item())
         e_fwd = (y - yr).abs().max().item()
         e_y2, e_h0 = (y2 - yr).abs().max().item(), (h0 - h0r).abs().max().item()
         g_errs = {n: ((p - q).abs().max().item(), 1e-3 * q.abs().max().item())
                   for n, p, q in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, grads_r)}
         phase("K3", f"({Bs}, {T3}, {D3}, {N3}) fwd max-abs {e_fwd:.3e} (bar {y_bar:.3e}); fwd_states y {e_y2:.3e}, "
-              f"h0 {e_h0:.3e} (bar {h_bar:.3e}); bwd " + ", ".join(f"{n} {e:.3e} (bar {b:.3e})" for n, (e, b) in g_errs.items())
+              f"h0 {e_h0:.3e} (bar {h_bar:.3e}); K3a y and K3b y bitwise equal: {same_ab}; two K3a runs bitwise "
+              f"equal: {same_fwd}; bwd " + ", ".join(f"{n} {e:.3e} (bar {b:.3e})" for n, (e, b) in g_errs.items())
               + f"; two bwd runs bitwise equal: {same}")
         if not (e_fwd <= y_bar and e_y2 <= y_bar and e_h0 <= h_bar and all(e <= b for e, b in g_errs.values())
-                and same and all(torch.isfinite(t).all() for t in (y, y2, h0, *grads))):
+                and same and same_fwd and same_ab and all(torch.isfinite(t).all() for t in (y, y2, h0, *grads))):
             raise AssertionError(f"K3 disagrees with its twins at B={Bs}")
-        bwd_ms, prev_ms = paired_ms(lambda: K3.selective_scan_bwd(*a3, h0, gy),
-                                    (lambda: prev_bwd[0](*a3, h0, gy)) if prev_bwd else None,
-                                    timer=lambda f: cuda_ms(f, iters=5))
-        prev_err = None
-        if prev_bwd:
-            prev_err = max((p - q).abs().max().item() / (1e-3 * q.abs().max().item())
-                           for p, q in zip(prev_bwd[0](*a3, h0, gy), grads_r))
+        eager = lambda f: cuda_ms(f, iters=10)  # noqa: E731
+        fwd_ms, fwd_prev = paired_ms(lambda: K3.selective_scan_fwd(*a3),
+                                     (lambda: prev["fwd"](*a3)) if prev else None, timer=eager)
+        st_ms, st_prev = paired_ms(lambda: K3.selective_scan_fwd_states(*a3),
+                                   (lambda: prev["fwd_states"](*a3)) if prev else None, timer=eager)
+        bwd_ms, bwd_prev = paired_ms(lambda: K3.selective_scan_bwd(*a3, h0, gy),
+                                     (lambda: prev["bwd"](*a3, h0, gy)) if prev else None,
+                                     timer=lambda f: cuda_ms(f, iters=5))
+        prev_errs = {}
+        if prev:
+            py, (py2, ph0) = prev["fwd"](*a3), prev["fwd_states"](*a3)
+            prev_errs = {
+                "selective_scan_fwd": f"max-abs {(py - yr).abs().max().item():.3e}",
+                "selective_scan_fwd_states": f"max-abs y {(py2 - yr).abs().max().item():.3e}, h0 "
+                                             f"{(ph0 - h0r).abs().max().item():.3e}",
+                "selective_scan_bwd": "worst gradient error " + "{:.3f} of the bar".format(max(
+                    (p - q).abs().max().item() / (1e-3 * q.abs().max().item())
+                    for p, q in zip(prev["bwd"](*a3, h0, gy), grads_r))),
+            }
         times = {
-            "selective_scan_fwd": (cuda_ms(lambda: K3.selective_scan_fwd(*a3)),
-                                   cuda_ms(lambda: selective_scan_sequential(*a3), iters=3, warmup=1), "fwd", e_fwd),
-            "selective_scan_fwd_states": (cuda_ms(lambda: K3.selective_scan_fwd_states(*a3)),
-                                          cuda_ms(lambda: K3.selective_scan_states_ref(*a3), iters=3, warmup=1),
-                                          "states", max(e_y2, e_h0)),
-            "selective_scan_bwd": (bwd_ms, cuda_ms(lambda: K3.selective_scan_bwd_ref(*a3, h0r, gy), iters=2, warmup=1),
-                                   "bwd", max(e for e, _ in g_errs.values())),
+            "selective_scan_fwd": (fwd_ms, fwd_prev, cuda_ms(lambda: selective_scan_sequential(*a3), iters=3, warmup=1),
+                                   "fwd", e_fwd),
+            "selective_scan_fwd_states": (st_ms, st_prev, cuda_ms(lambda: K3.selective_scan_states_ref(*a3), iters=3,
+                                                                  warmup=1), "states", max(e_y2, e_h0)),
+            "selective_scan_bwd": (bwd_ms, bwd_prev, cuda_ms(lambda: K3.selective_scan_bwd_ref(*a3, h0r, gy), iters=2,
+                                                             warmup=1), "bwd", max(e for e, _ in g_errs.values())),
         }
-        for key, (ms, plain, kind, err) in times.items():
+        for key, (ms, prev_ms, plain, kind, err) in times.items():
             work = K3.scan_work(kind, Bs, T3, D3, N3)
             bms, by = bound(work, H100_FP32_FLOPS)
             line = f"{key} ({Bs}, {T3}, {D3}, {N3}): kernel {ms:.4f} ms, "
-            if key == "selective_scan_bwd":
-                line += ("previous kernel not measured, " if prev_ms is None else
-                         f"previous kernel {prev_ms:.4f} ms (its worst gradient error {prev_err:.3f} of the bar), ")
+            line += ("previous kernel not measured, " if prev_ms is None else
+                     f"previous kernel {prev_ms:.4f} ms (its {prev_errs[key]}), ")
             phase("K3", line + f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}) per launch")
             r = k3[key]
             r["ms"] += 4 * ms
@@ -462,30 +562,46 @@ def scan_phase(gen, dev, prev_bwd=None):
             r["err"] = max(r["err"], err)
             for q in ("bytes", "flops", "exps"):
                 r[q] += 4 * work[q]
-        if prev_ms is not None:
-            k3["selective_scan_bwd"]["prev_ms"] += 4 * prev_ms
-    r = k3["selective_scan_bwd"]
-    prev_total = "not measured" if r["prev_ms"] is None else f"{r['prev_ms']:.4f} ms"
-    phase("K3", f"K3c per Mamba train step (4 launches at B = 256, 4 at 64): kernel {r['ms']:.4f} ms, "
-          f"previous kernel {prev_total}, bound {r['bound_ms']:.4f} ms")
-    for Bs, Tx, Dx in ((3, 37, 100), (2, 50, 200), (4, 33, 130)):
+            if prev_ms is not None:
+                r["prev_ms"] += 4 * prev_ms
+    for key, name, per in zip(keys, ("K3a", "K3b", "K3c"), ("Mamba forward", "Mamba train step", "Mamba train step")):
+        r = k3[key]
+        prev_total = "not measured" if r["prev_ms"] is None else f"{r['prev_ms']:.4f} ms"
+        phase("K3", f"{name} per {per} (4 launches at B = 256, 4 at 64): kernel {r['ms']:.4f} ms, "
+              f"previous kernel {prev_total}, bound {r['bound_ms']:.4f} ms")
+    def place(t, shifted):
+        """t on the card; where `shifted`, one float past a 16-byte boundary,
+        so that the forward stages it by 4-byte copies."""
+        if not shifted:
+            return t.to(dev)
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.reshape(-1).to(dev)
+        return buf[1:].view(t.shape)
+
+    for Bs, Tx, Dx, shifted in ((3, 37, 100, False), (2, 50, 200, False), (4, 33, 130, False), (2, 37, 96, True)):
         for Nx in K3.STATE_SIZES:
-            x = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
-            dt = (0.01 + 0.1 * torch.rand((Bs, Tx, Dx), generator=gen)).to(dev)
+            x = place(torch.randn((Bs, Tx, Dx), generator=gen), shifted)
+            dt = place(0.01 + 0.1 * torch.rand((Bs, Tx, Dx), generator=gen), shifted)
             A = -torch.exp(torch.randn((Dx, Nx), generator=gen)).to(dev)
-            a3 = (x, dt, A, torch.randn((Bs, Tx, Nx), generator=gen).to(dev),
-                  torch.randn((Bs, Tx, Nx), generator=gen).to(dev), torch.randn(Dx, generator=gen).to(dev))
+            a3 = (x, dt, A, place(torch.randn((Bs, Tx, Nx), generator=gen), shifted),
+                  place(torch.randn((Bs, Tx, Nx), generator=gen), shifted), torch.randn(Dx, generator=gen).to(dev))
             gy = torch.randn((Bs, Tx, Dx), generator=gen).to(dev)
             yr, h0r = K3.selective_scan_states_ref(*a3)
+            y1 = K3.selective_scan_fwd(*a3)
             y2, h0 = K3.selective_scan_fwd_states(*a3)
-            e = max((K3.selective_scan_fwd(*a3) - yr).abs().max().item(), (y2 - yr).abs().max().item())
+            e = max((y1 - yr).abs().max().item(), (y2 - yr).abs().max().item())
+            eh = (h0 - h0r).abs().max().item()
+            y_bar, h_bar = 1e-4 * max(1.0, yr.abs().max().item()), 1e-4 * max(1.0, h0r.abs().max().item())
+            same_ab = torch.equal(y1, y2)
             grads = K3.selective_scan_bwd(*a3, h0, gy)
             same = all(torch.equal(p, q) for p, q in zip(grads, K3.selective_scan_bwd(*a3, h0, gy)))
             ge = max(((p - q).abs().max() / q.abs().max()).item()
                      for p, q in zip(grads, K3.selective_scan_bwd_ref(*a3, h0r, gy)))
-            phase("K3", f"({Bs}, {Tx}, {Dx}, {Nx}): y max-abs {e:.3e} (bar {1e-4 * max(1.0, yr.abs().max().item()):.3e}), "
-                  f"gradients max-abs / max|twin| {ge:.3e} (bar 1e-3), two bwd runs bitwise equal: {same}")
-            if not (e <= 1e-4 * max(1.0, yr.abs().max().item()) and ge <= 1e-3 and same):
+            phase("K3", f"({Bs}, {Tx}, {Dx}, {Nx}){' shifted by a float' if shifted else ''}: y max-abs {e:.3e} "
+                  f"(bar {y_bar:.3e}), h0 max-abs {eh:.3e} (bar "
+                  f"{h_bar:.3e}), K3a y and K3b y bitwise equal: {same_ab}; gradients max-abs / max|twin| {ge:.3e} "
+                  f"(bar 1e-3), two bwd runs bitwise equal: {same}")
+            if not (e <= y_bar and eh <= h_bar and same_ab and ge <= 1e-3 and same):
                 raise AssertionError(f"K3 disagrees with its twins at ({Bs}, {Tx}, {Dx}, {Nx})")
     for r in k3.values():
         r["bound_by"] = bound(r, H100_FP32_FLOPS)[1]
@@ -683,7 +799,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
 
-    from speaker_diarization_tpu_torch.bench import make_inputs, throughput
+    from speaker_diarization_tpu_torch.bench import make_inputs, profile, throughput
     from speaker_diarization_tpu_torch.kernels import _build
     from speaker_diarization_tpu_torch.kernels import cam_block as K2
     from speaker_diarization_tpu_torch.kernels import cam_block_fused as CF
@@ -717,16 +833,17 @@ def main() -> int:
     gen = torch.Generator(device="cpu").manual_seed(0)
     records = {}
 
-    # ---- K1: fbank kernel vs its plain twin (fp32), at the TS-VAD shape and
-    # the recipe's 8 kHz front end; two runs must give the same bits; the
-    # previous kernel (build/prev, where a call put it) is timed beside it
+    # ---- K1: fbank kernel vs its plain twin (fp32), at the TS-VAD shape, the
+    # recipe's 8 kHz front end and 48 kHz (n_fft 2048: a frame of two warps);
+    # two runs must give the same bits; the previous kernel (build/prev,
+    # where a call put it) is timed beside it at 16 and 8 kHz
     prev1 = prev_fbank(prev_fbank_build)
     phase("prev", "the previous K1/K1′ built from build/prev/fbank.cu for timing" if prev1 else
           "no build/prev/fbank.cu: the previous K1/K1′ is not timed")
     for inst, lines in ptxas_props(_build.build_log("fbank"), "fbank_kernel").items():
-        phase("K1", f"fbank_kernel<{inst}> (n_fft {2 * int(inst)}): {' | '.join(lines)}")
+        phase("K1", f"fbank_kernel<{inst}> (n_fft {2 * int(inst.split(',')[0])}): {' | '.join(lines)}")
     k1lib = K1._lib()
-    for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000))):
+    for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000)), (48000, 80, (8, 96000))):
         x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
         win, shift, n_fft = FE.frame_params(sr)
         T = 1 + (shape[1] - win) // shift
@@ -742,10 +859,11 @@ def main() -> int:
         torch.cuda.synchronize()
         same = torch.equal(got, again)
         err = (got - ref).abs().max().item()
+        old = prev1 if sr != 48000 else None
         ms, prev_ms = paired_ms(lambda: K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels),
-                                (lambda: prev1["fbank"](x, sr, n_mels)) if prev1 else None)
+                                (lambda: old["fbank"](x, sr, n_mels)) if old else None)
         eager = cuda_ms(lambda: K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels))
-        prev_err = (prev1["fbank"](x, sr, n_mels) - ref).abs().max().item() if prev1 else None
+        prev_err = (old["fbank"](x, sr, n_mels) - ref).abs().max().item() if old else None
         plain = cuda_ms(lambda: FE.kaldi_fbank_torch(x, sample_rate=sr, num_mel_bins=n_mels, mean_norm=False))
         work = K1.fbank_work(shape[0], shape[1], sr, n_mels)
         bms, by = bound(work, H100_FP32_FLOPS)
@@ -762,12 +880,14 @@ def main() -> int:
 
     # ---- K1′: the EEND log-mel entry vs its plain twin (fp32, log10 units;
     # bar 2e-3 = K1's 5e-3 natural-log bar / ln 10). The main shape is the
-    # EEND bench's: batch 32 × one 50 s chunk at 8 kHz; then 16 kHz and
-    # ragged lengths (not a multiple of the shift; shorter than n_fft); two
-    # runs must give the same bits; the previous kernel is timed beside it
+    # EEND bench's: batch 32 × one 50 s chunk at 8 kHz; then 16 kHz, 48 kHz
+    # (frame_size 1200, n_fft 2048) and ragged lengths (not a multiple of the
+    # shift; shorter than n_fft); two runs must give the same bits; the
+    # previous kernel is timed beside it
     k1p = dict(err=0.0)
     for sr, fs, sh, shape in ((8000, 200, 80, (32, 400000)), (16000, 400, 160, (8, 160000)),
-                              (8000, 200, 80, (3, 8123)), (8000, 200, 80, (2, 100)), (16000, 400, 160, (2, 16010))):
+                              (48000, 1200, 480, (4, 96000)), (8000, 200, 80, (3, 8123)), (8000, 200, 80, (2, 100)),
+                              (16000, 400, 160, (2, 16010))):
         x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
         T = FE.count_frames(shape[1], sh)
         got = K1.logmel_cuda(x, T, fs, sh, sr, 23)
@@ -1028,9 +1148,9 @@ def main() -> int:
         if not (e_twin <= 2e-4 and e_cudnn <= 2e-4 and torch.isfinite(got).all()):
             raise AssertionError(f"K4 fp32 ({Bx}, {Tx}) disagrees: {e_twin} vs the twin, {e_cudnn} vs _fcm_infer")
 
-    # ---- K3a/K3b/K3c: the selective-scan kernels vs their plain twins;
-    # the previous K3c (build/prev, where a call put it) is timed beside K3c
-    prev3 = prev_scan_bwd(prev_scan_build)
+    # ---- K3a/K3b/K3c: the selective-scan kernels vs their plain twins; the
+    # previous kernels (build/prev, where a call put it) are timed beside them
+    prev3 = prev_scan(prev_scan_build)
     records.update(scan_phase(gen, dev, prev3))
 
     # ---- the main path: full-width TS-VAD forward through the kernels
@@ -1051,6 +1171,21 @@ def main() -> int:
 
     def want(**nonzero):
         return {k: nonzero.get(k, 0) for k in wrappers}
+
+    def in_turns(attr, prev_fn, measure):
+        """`measure()` in turns current, previous, previous, current, with
+        K3.<attr> replaced by `prev_fn` in the previous turns. → a line of
+        each kernel's mean (wall, device) ms and its two runs."""
+        cur, runs = getattr(K3, attr), {"current": [], "previous": []}
+        for which in ("current", "previous", "previous", "current"):
+            setattr(K3, attr, cur if which == "current" else prev_fn)
+            try:
+                runs[which].append(measure())
+            finally:
+                setattr(K3, attr, cur)
+        return "; ".join(f"{k} {sum(w for w, _ in v) / 2:.3f} ms (runs {[round(w, 3) for w, _ in v]}), device "
+                         f"{sum(d for _, d in v) / 2:.3f} ms (runs {[round(d, 3) for _, d in v]})"
+                         for k, v in runs.items())
 
     def fixed_batch_steps(trainer, batch, launches, what):
         """Five train steps on one batch, each launching exactly `launches`;
@@ -1172,12 +1307,18 @@ def main() -> int:
     tpm = throughput(mmodel, audios, embss, n_label, iters=20, reps=3)
     phase("throughput", f"TS-VAD-Mamba bf16 batch 64 x 4 s: {tpm['ms_per_forward']:.3f} ms/forward, "
           f"{tpm['audio_s_per_s']:.1f} audio-s/s (checksum {tpm['witness']:.6e}, reps {[round(r, 4) for r in tpm['reps_s']]})")
+    if prev3:  # K3a against the previous K3a on the whole forward (wall from the host, device from the profiler)
+        mfwd = torch.no_grad()(lambda: mmodel(audios[0], embss[0], n_label))
+        phase("throughput", "TS-VAD-Mamba bf16 forward in turns (K3a, previous, previous, K3a): " + in_turns(
+            "selective_scan_fwd", prev3["fwd"],
+            lambda: (throughput(mmodel, audios, embss, n_label, iters=20, reps=3)["ms_per_forward"], profile(mfwd)[1])))
     del mmodel
 
     # ---- the training path: Mamba TS-VAD train steps (K1, K3b, K3c); the
-    # recipe step is timed with the previous K3c too where build/prev holds
-    # it, in turns (wall from the host, device time from the profiler)
-    from speaker_diarization_tpu_torch.bench import make_train_batches, profile, recipe_trainer, train_throughput
+    # recipe step is timed with the previous K3b, then the previous K3c, too
+    # where build/prev holds them, in turns (wall from the host, device time
+    # from the profiler), one kernel swapped at a time
+    from speaker_diarization_tpu_torch.bench import make_train_batches, recipe_trainer, train_throughput
     from speaker_diarization_tpu_torch.train.tasks import make_tsvad_loss
     from speaker_diarization_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -1196,17 +1337,11 @@ def main() -> int:
           f"{tt['ms_per_step']:.3f} ms/step (loss checksum {tt['witness']:.6e}, reps {[round(r, 4) for r in tt['reps_s']]}), "
           f"device {dev_ms:.3f} ms/step, busy {dev_ms / tt['ms_per_step']:.3f}")
     if prev3:
-        turns, cur = {"K3c": [], "previous K3c": []}, K3.selective_scan_bwd
-        for which in ("K3c", "previous K3c", "previous K3c", "K3c"):
-            K3.selective_scan_bwd = cur if which == "K3c" else prev3[0]
-            try:
-                wall = train_throughput(trainer, batches, iters=5, reps=3)["ms_per_step"]
-                turns[which].append((wall, profile(lambda: trainer.train_step(batches[0]))[1]))
-            finally:
-                K3.selective_scan_bwd = cur
-        phase("throughput", "TS-VAD-Mamba train step in turns (K3c, previous, previous, K3c): " + "; ".join(
-            f"{k} {sum(w for w, _ in v) / 2:.3f} ms/step (runs {[round(w, 3) for w, _ in v]}), device "
-            f"{sum(d for _, d in v) / 2:.3f} ms/step (runs {[round(d, 3) for _, d in v]})" for k, v in turns.items()))
+        step = lambda: (train_throughput(trainer, batches, iters=5, reps=3)["ms_per_step"],  # noqa: E731
+                        profile(lambda: trainer.train_step(batches[0]))[1])
+        for kernel, attr, key in (("K3b", "selective_scan_fwd_states", "fwd_states"), ("K3c", "selective_scan_bwd", "bwd")):
+            phase("throughput", f"TS-VAD-Mamba train step in turns ({kernel}, previous, previous, {kernel}; a step): "
+                  + in_turns(attr, prev3[key], step))
     del tmodel, fixed, batches, trainer
 
     # ---- TS-VAD with BiMamba-2 (SSD) backends, the second hermetic recipe's

@@ -36,18 +36,23 @@
 //   (k, M-k) at a time.
 // - Registers first: a frame takes P = M/16 threads, each holding 16 complex
 //   points (thread t: z[t + P r], r < 16). Stockham passes of radix 16 (and
-//   a last radix of 4, 8, 16 or 2x16 then 2: kernels/fbank.fft_radices) run
+//   a last radix of 4, 8, 16, or 2x16 then 2 or 4: kernels/fbank.fft_radices) run
 //   in registers; between two passes the points cross one exchange buffer
 //   of complex values in shared memory, padded one in 16 so that a pass's
 //   stores and loads are free of bank conflicts. After the last pass thread
 //   t holds Z[t + P w], w < 16, and Z[M-k] comes from lane (P - t) mod P by
 //   shuffle: one shared-memory round trip a frame instead of log2(n_fft).
+//   At n_fft 2048 a frame takes P = 64 threads, two warps, which a shuffle
+//   cannot join: there the frame's threads meet at a named barrier of their
+//   own instead of __syncwarp, and the partner values and the DC sum's two
+//   halves cross the frame's exchange buffer (frame_sync, exchange_partners).
 // - Twiddles are tables computed on the host in float64 (W_N^k, k < M;
 //   W_M^a = W_N^2a, negated past M), never __sinf/__cosf: near-floor bins do
 //   not survive that error under the log.
 // - Persistent CTAs: the grid is planned in Python (kernels/fbank.launch_plan:
-//   three CTAs a SM by shared memory, each a contiguous run of tiles of
-//   8192/n_fft frames, one a frame slot) and checked here. A CTA stages the
+//   up to three CTAs a SM by shared memory, two at n_fft 2048, each a
+//   contiguous run of tiles of 8192/n_fft frames, one a frame slot) and
+//   checked here. A CTA stages the
 //   window, twiddles and the mel table once, and each tile's sample span,
 //   overlapping frames read once, by cp.async (16-byte copies where the span
 //   is aligned) into a double buffer: the next tile's audio loads while this
@@ -92,7 +97,8 @@ __host__ __device__ constexpr int last_radix(int M) {
 // Row stride of a tile's power spectra [frame][bin]: odd, so that the mel
 // stage's lanes (one frame each) read 32 banks, and = P + 1 mod 32, so that
 // the post-pass's stores (P lanes a frame on consecutive bins, 32/P frames a
-// warp) nearly never share a bank.
+// warp; at P = 64 a warp stores 32 consecutive bins of one frame) nearly
+// never share a bank.
 __host__ __device__ constexpr int pow_stride(int M) {
   int s = M + 1;
   while (s % 32 != (M / kPoints + 1) % 32) ++s;
@@ -171,6 +177,21 @@ __device__ __forceinline__ float w16i(int e) {
   }
 }
 
+// Every thread of a frame has reached this point, and its shared-memory
+// accesses before it are seen by the frame's threads after it: __syncwarp
+// where a frame lies in one warp (P <= 32); else a named barrier over the
+// frame's P threads, one per frame slot f (ids 1 .. kThreads / P; 0 is
+// __syncthreads').
+template <int P>
+__device__ __forceinline__ void frame_sync(int f) {
+  static_assert(P <= 32 || (P % 32 == 0 && kThreads / P < 16), "a frame is one warp or whole warps");
+  if constexpr (P <= 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(f + 1), "n"(P) : "memory");
+  }
+}
+
 // in-register DFT of R points, natural order in and out (radix-2 decimation
 // in time; the products by 1 and -i are left out)
 template <int R>
@@ -215,7 +236,7 @@ __device__ __forceinline__ void dft(float* re, float* im) {
 // (j/NS) NS R + j mod NS + NS q. The last pass keeps its output in registers.
 template <int M, int NS>
 __device__ __forceinline__ void later_passes(float (&re)[kPoints], float (&im)[kPoints], float2* xc, const float2* wm,
-                                             int t) {
+                                             int t, int f) {
   constexpr int P = M / kPoints;
   constexpr int R = M / NS < kPoints ? M / NS : kPoints;
   constexpr int NB = kPoints / R;
@@ -243,7 +264,7 @@ __device__ __forceinline__ void later_passes(float (&re)[kPoints], float (&im)[k
     dft<R>(re + u * R, im + u * R);
   }
   if constexpr (NS * R < M) {
-    __syncwarp();  // every lane has read its inputs
+    frame_sync<P>(f);  // every thread of the frame has read its inputs
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
       const int j = t + P * u;
@@ -253,8 +274,8 @@ __device__ __forceinline__ void later_passes(float (&re)[kPoints], float (&im)[k
         xc[xpad(dst + NS * q)] = make_float2(re[u * R + q], im[u * R + q]);
       }
     }
-    __syncwarp();
-    later_passes<M, NS * R>(re, im, xc, wm, t);
+    frame_sync<P>(f);
+    later_passes<M, NS * R>(re, im, xc, wm, t, f);
   }
 }
 
@@ -279,23 +300,55 @@ __device__ __forceinline__ void mirrored_pair(float ar, float ai, float pr, floa
   pw[M - k] = (er + vr) * (er + vr) + (ei + vi) * (ei + vi);  // the same bin where k = M/2
 }
 
+// Z[M-k] for thread t's bins k = t + P w, w < 8, at P > 32 (a frame of
+// several warps): thread (P - t) mod P holds it in register reg_of(15 - w)
+// (thread 0 holds its own partners). Each thread puts those 8 values into
+// the slot's exchange buffer, which the last pass has finished reading, and
+// reads its partner's, before the barrier after which the buffer holds the
+// tile's power spectra.
+template <int M>
+__device__ __forceinline__ void exchange_partners(const float (&re)[kPoints], const float (&im)[kPoints],
+                                                  float (&pr)[kPoints / 2], float (&pi)[kPoints / 2], float2* xc,
+                                                  int t, int f) {
+  constexpr int P = M / kPoints;
+  const int src = (P - t) & (P - 1);
+  frame_sync<P>(f);  // every thread of the frame has read the last pass's inputs
+#pragma unroll
+  for (int w = 0; w < kPoints / 2; ++w)
+    xc[xpad(P * w + t)] = make_float2(re[reg_of<M>(15 - w)], im[reg_of<M>(15 - w)]);
+  frame_sync<P>(f);
+#pragma unroll
+  for (int w = 0; w < kPoints / 2; ++w) {
+    const float2 v = xc[xpad(P * w + src)];
+    pr[w] = v.x;
+    pi[w] = v.y;
+    if (t == 0) {
+      pr[w] = re[reg_of<M>((16 - w) & 15)];
+      pi[w] = im[reg_of<M>((16 - w) & 15)];
+    }
+  }
+}
+
 // 4 |X[k]|^2 into pw[k], k = 0..M: the split post-pass, one pair of mirrored
 // bins at a time. Thread t takes k = t + P w, w < 8, with Z[M-k] from lane
 // (P - t) mod P (thread 0 holds its own partners); its partner's w >= 8
 // bins are its mirrors, and k = M/2, its own mirror, is thread 0's w = 8.
+// At P > 32 exchange_partners has already put the partners into pr, pi.
 template <int M>
-__device__ __forceinline__ void power_spectrum(const float (&re)[kPoints], const float (&im)[kPoints], float* pw,
+__device__ __forceinline__ void power_spectrum(const float (&re)[kPoints], const float (&im)[kPoints],
+                                               float (&pr)[kPoints / 2], float (&pi)[kPoints / 2], float* pw,
                                                const float2* wn, int t) {
   constexpr int P = M / kPoints;
-  const int src = (P - t) & (P - 1);
-  float pr[kPoints / 2], pi[kPoints / 2];
+  if constexpr (P <= 32) {
+    const int src = (P - t) & (P - 1);
 #pragma unroll
-  for (int w = 0; w < kPoints / 2; ++w) {
-    pr[w] = __shfl_sync(kFull, re[reg_of<M>(15 - w)], src, P);
-    pi[w] = __shfl_sync(kFull, im[reg_of<M>(15 - w)], src, P);
-    if (t == 0) {
-      pr[w] = re[reg_of<M>((16 - w) & 15)];
-      pi[w] = im[reg_of<M>((16 - w) & 15)];
+    for (int w = 0; w < kPoints / 2; ++w) {
+      pr[w] = __shfl_sync(kFull, re[reg_of<M>(15 - w)], src, P);
+      pi[w] = __shfl_sync(kFull, im[reg_of<M>(15 - w)], src, P);
+      if (t == 0) {
+        pr[w] = re[reg_of<M>((16 - w) & 15)];
+        pi[w] = im[reg_of<M>((16 - w) & 15)];
+      }
     }
   }
 #pragma unroll
@@ -310,8 +363,10 @@ __device__ __forceinline__ void power_spectrum(const float (&re)[kPoints], const
 // KALDI: K1 (frames of frame_len samples from t*shift, scaled to int16, DC
 // removed, preemphasized; natural log, floor FLT_EPSILON); else K1' (frames
 // of n_fft samples from t*shift - n_fft/2; log10, floor 1e-10)
+// n_fft 2048's tile takes more than a third of an SM's shared memory: two
+// CTAs an SM, so its instances may use more registers
 template <int M, bool KALDI>
-__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+__global__ void __launch_bounds__(kThreads, M > 512 ? 2 : kMinCtasPerSm)
 fbank_kernel(const float* __restrict__ x, float* __restrict__ out, const float* __restrict__ window,
              const float* __restrict__ tw_re, const float* __restrict__ tw_im, const float* __restrict__ mel_w,
              const int* __restrict__ mel_start, const int* __restrict__ mel_band, int N, int T, int frame_len,
@@ -402,10 +457,11 @@ fbank_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
     const int b = tile / tiles_per_wave, t0 = (tile % tiles_per_wave) * F;
     const int nf = min(F, T - t0);
     // a warp whose frames all lie past the tile's end skips the transform
-    const bool busy = warp * (32 / P) < nf;
+    // (at P = 64 both warps of a frame skip it or neither)
+    const bool busy = warp * 32 / P < nf;
     const bool active = f < nf;
     const float* fr = cur + f * shift;  // f < F: reads stay inside the buffer
-    float re[kPoints], im[kPoints];
+    float re[kPoints], im[kPoints], pr[kPoints / 2], pi[kPoints / 2];
     if (busy) {
       // pass 1's inputs: z[t + P r] = (x[2n], x[2n+1]) at n = t + P r
 #pragma unroll
@@ -434,8 +490,20 @@ fbank_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
           im[r] *= kInt16Scale;
           sum += re[r] + im[r];
         }
+        if constexpr (P <= 32) {
 #pragma unroll
-        for (int o = P / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o, P);
+          for (int o = P / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o, P);
+        } else {
+          // each warp's half, then the two halves in order through the last
+          // float2 of the slot's exchange buffer, which no pass writes
+          static_assert(P == 64, "a frame of two warps");
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+          float* halves = reinterpret_cast<float*>(xc + xpad(M) - 1);
+          if ((t & 31) == 0) halves[t >> 5] = sum;
+          frame_sync<P>(f);
+          sum = halves[0] + halves[1];
+        }
         const float mean = sum / (float)frame_len;
 #pragma unroll
         for (int r = 0; r < kPoints; ++r) {
@@ -463,11 +531,12 @@ fbank_kernel(const float* __restrict__ x, float* __restrict__ out, const float* 
       for (int q = 0; q < kPoints; ++q) {
         xc[xpad(kPoints * t + q)] = make_float2(re[q], im[q]);
       }
-      __syncwarp();
-      later_passes<M, kPoints>(re, im, xc, wm, t);
+      frame_sync<P>(f);
+      later_passes<M, kPoints>(re, im, xc, wm, t, f);
+      if constexpr (P > 32) exchange_partners<M>(re, im, pr, pi, xc, t, f);
     }
     __syncthreads();  // every slot has read its exchange buffer: it now takes the tile's power
-    if (busy) power_spectrum<M>(re, im, s_pow + f * PS, wn, t);  // rows past nf are never read
+    if (busy) power_spectrum<M>(re, im, pr, pi, s_pow + f * PS, wn, t);  // rows past nf are never read
     __syncthreads();
 
     // mel bands over each filter's non-zero weights, in two chains; floor
@@ -524,7 +593,8 @@ int launch(const void* x, void* out, const void* window, const void* tw_re, cons
            const void* mel_start, const void* mel_band, int B, int N, int T, int frame_len, int shift, int n_fft,
            int n_mels, int mel_len, float preemph, int grid, int F, int smem,
            void* stream) {
-  if (n_fft != 128 && n_fft != 256 && n_fft != 512 && n_fft != 1024) return (int)cudaErrorInvalidValue;
+  if (n_fft != 128 && n_fft != 256 && n_fft != 512 && n_fft != 1024 && n_fft != 2048)
+    return (int)cudaErrorInvalidValue;
   const int slots = kThreads * kPoints / (n_fft / 2);
   if (B < 1 || N < 1 || T < 1 || F != slots || grid < 1 || shift < 1 || frame_len < 1 ||
       frame_len > n_fft || n_mels < 1 || mel_len < 1 || mel_len > n_fft / 2 + 1)
@@ -548,7 +618,9 @@ int launch(const void* x, void* out, const void* window, const void* tw_re, cons
     case 128: return SDT_RUN(64);
     case 256: return SDT_RUN(128);
     case 512: return SDT_RUN(256);
-    default: return SDT_RUN(512);
+    case 1024: return SDT_RUN(512);
+    case 2048: return SDT_RUN(1024);
+    default: return (int)cudaErrorInvalidValue;
   }
 #undef SDT_RUN
 }

@@ -12,25 +12,38 @@
 // dx, ddt, dA, dB, dC, dD.
 //
 // exp: every decay is 2^(dt * A2) with A2 = A * log2(e) pre-scaled once per
-// thread (ex2 on the special-function units, at most 2 ulp: exp2f in K3a/K3b,
-// ex2.approx.ftz in K3c); the pre-scaling adds a relative error of about
-// |dt A| * 6e-8 to each decay. The plain twins use torch.exp, so kernel and
-// twin differ by a few ulp per step.
+// thread (ex2.approx.ftz on the special-function units, at most 2 ulp; a
+// decay below 2^-126 becomes 0); the pre-scaling adds a relative error of
+// about |dt A| * 6e-8 to each decay. The plain twins use torch.exp, so
+// kernel and twin differ by a few ulp per step.
 //
 // What bounds it on the H100: at the main-path shape (B = 256, T = 100,
 // D = 768, N = 64) K3a must move about 249 MB (x, dt, y and Bm, Cm), 0.074 ms
 // at 3.35 TB/s, but needs B*T*D*N = 1.26e9 exponentials, about 0.30 ms at the
 // SFUs' 16 per SM per clock: it is bound by operations, the exponentials.
+// An element (t, d, n) costs one MUFU.EX2, which takes a warp scheduler 8
+// clocks for a warp, so the issue of its other instructions hides behind it
+// only while they stay fewer than 8: an FMUL (dt A2), an FMUL (Bm dt x), an
+// FFMA (h), an FFMA (y) and half an LDS.128 are 5.5.
 //
 // Design. The TPU kernel walked a (batch, time-chunk) grid in order and
 // carried the (N, D) state in VMEM between grid steps; CUDA blocks run in no
 // order, so here the time loop runs inside the block:
-// - K3a/K3b: a block owns (one batch row, 128 channels) for the whole T; each
-//   thread holds the N states of its channel and N pre-scaled decays in
-//   registers. Bm_t and Cm_t of a tile of 32 steps are staged in shared
-//   memory, read by every thread of the block as broadcasts (float4). x and dt
-//   are read with neighbouring threads on neighbouring channels. The main
-//   shape gives 256 x 6 blocks for 132 SMs.
+// - K3a/K3b: a block of 128 threads owns one batch row and 32 channels for
+//   the whole T (FwdLayout): kFwdSplit = 4 neighbouring threads share a
+//   channel, each holding 16 of its states and their pre-scaled decays in
+//   registers (96 registers, 5 blocks and 20 warps an SM; one thread holding
+//   all 64 took 168 registers, 12 warps, and spilled once its steps were
+//   unrolled), and y adds the four shares by two xor shuffles a step. The
+//   time loop walks tiles of kChunk steps: a tile's x and dt of the block's
+//   channels and its rows of Bm and Cm are copied into shared memory by
+//   cp.async (16-byte copies where aligned, zeros past T and D), the next
+//   tile's into a second stage while this one runs, so the step loop reads
+//   only shared memory (Bm, Cm as float4 broadcasts) and registers. A full
+//   tile's 16 steps are unrolled; the ragged last tile runs a loop. K3b
+//   stores h0 once a tile, at its start, outside the step loop. The rounding
+//   points are explicit (fmaf, __fmul_rn), so K3a and K3b, one template,
+//   give the same y bit for bit. The main shape gives 24 x 256 blocks.
 // - K3c: a warp owns two neighbouring channels (kBwdCW), its lanes split the
 //   N states (two per lane at N = 64, so a lane holds 2 x 2); a block of 12
 //   warps holds 24 channels of one batch row, one tile of D (32 tiles at
@@ -58,11 +71,13 @@
 //   partials in a fixed order. Every sum has a fixed order and there are no
 //   atomics, so the result does not change from run to run (the TPU
 //   kernel's "zero on grid step (0, 0), accumulate across the grid" needs an
-//   ordered grid and is not copied). chip_smoke.py times the previous K3c
-//   (one warp per channel reading device memory at every step, two warp sums
-//   a step on the chain, an exchange every 8 steps, 48 tiles) beside this
-//   one, built from build/prev/selective_scan.cu where that holds the file as
-//   of e35add6.
+//   ordered grid and is not copied).
+// chip_smoke.py times the previous K3a/K3b (a thread per channel, x and dt
+// read from device memory at every step, exp2f, the h0 test in the step
+// loop) and K3c (one warp per channel reading device memory at every step,
+// two warp sums a step on the chain, an exchange every 8 steps, 48 tiles)
+// beside these, built from build/prev/selective_scan.cu where that holds the
+// file as of e35add6.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -70,69 +85,197 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kFwdThreads = 128;  // K3a/K3b: channels per block
-constexpr int kTimeTile = 32;     // K3a/K3b: steps of Bm, Cm staged in shared memory
-constexpr int kChunk = 16;        // K3b/K3c: steps per saved state
+constexpr int kFwdThreads = 128;  // K3a/K3b: threads per block
+constexpr int kFwdSplit = 4;      // K3a/K3b: threads per channel (at most), each holding a share of its states
+constexpr int kFwdBlocksPerSm = 5;  // K3a/K3b: blocks an SM holds (a register cap of 102)
+constexpr int kChunk = 16;        // K3a/K3b: steps per staged tile; K3b/K3c: steps per saved state
 constexpr int kBwdWarps = 12;     // K3c: warps per block (168 registers a thread)
 constexpr int kBwdCW = 2;         // K3c: channels per warp
 constexpr int kBwdCh = kBwdWarps * kBwdCW;  // K3c: channels per block, one tile of D
 
+// 4-byte cp.async into shared memory; `ok` false fills the word with 0
+// (src is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+// the same for 16 bytes (dst and src 16-byte aligned)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+
+// 2^v on the special-function unit (ex2.approx.ftz: at most 2 ulp; a decay
+// below 2^-126 becomes 0), for every decay.
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// K3a/K3b's layout at d_state N. kFwdSplit threads share a channel, each
+// holding N / kFwdSplit of its states (fewer threads where N / 4 is
+// smaller: a thread holds whole groups of four states), so kFwdThreads /
+// split channels a block. Shared memory, in floats: two stages of one
+// tile's inputs, x and dt [kChunk][channels], Bm and Cm [kChunk][N].
+template <int N>
+struct FwdLayout {
+  static constexpr int kSplit = N / 4 < kFwdSplit ? N / 4 : kFwdSplit;  // threads a channel
+  static constexpr int kStates = N / kSplit;                             // states a thread
+  static constexpr int kChans = kFwdThreads / kSplit;                    // channels a block
+  static constexpr int kCh = kChunk * kChans;
+  static constexpr int kX = 0, kDt = kCh;
+  static constexpr int kB = 2 * kCh, kC = kB + kChunk * N;
+  static constexpr int kStage = kC + kChunk * N;
+  static constexpr int kTotal = 2 * kStage;
+  static_assert(N % 4 == 0 && kStates % 4 == 0 && kChans % 4 == 0 && kStage % 4 == 0, "16-byte copies");
+  // the state a thread holds at index i: groups of four dealt to the
+  // channel's threads in turn, so that their float4 reads of a row of Bm
+  // or Cm fall on distinct banks
+  static __host__ __device__ constexpr int state(int i, int j) { return 4 * ((i / 4) * kSplit + j) + i % 4; }
+};
+
+// Copy the tile of steps t0 .. t0 + kChunk - 1 into `buf`: x and dt of the
+// block's channels d0 .. d0 + kChans - 1, and the tile's rows of Bm and Cm
+// (zeros past T and past D), as one cp.async group of the caller's. vx:
+// D % 4 == 0 and x, dt 16-byte aligned, so a row's channels go by 16-byte
+// copies, each wholly inside D or past it; vbc: Bm and Cm 16-byte aligned.
+template <int N>
+__device__ __forceinline__ void stage_fwd_tile(float* buf, const float* x, const float* dt, const float* Bm,
+                                               const float* Cm, int b, int t0, int T, int D, int d0, bool vx,
+                                               bool vbc) {
+  using L = FwdLayout<N>;
+  const size_t row = (size_t)b * T;
+  if (vx) {
+    constexpr int Q = L::kChans / 4;  // float4s of a row
+    for (int i = threadIdx.x; i < 2 * kChunk * Q; i += kFwdThreads) {
+      const int a = i / (kChunk * Q), r = i - a * kChunk * Q, s = r / Q, dd = d0 + 4 * (r - s * Q);
+      const float* src = a == 0 ? x : dt;
+      const bool ok = t0 + s < T && dd < D;
+      cp_async16(buf + 4 * i, ok ? src + (row + t0 + s) * D + dd : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * L::kCh; i += kFwdThreads) {
+      const int a = i / L::kCh, r = i - a * L::kCh, s = r / L::kChans, dd = d0 + r - s * L::kChans;
+      const float* src = a == 0 ? x : dt;
+      const bool ok = t0 + s < T && dd < D;
+      cp_async4(buf + i, ok ? src + (row + t0 + s) * D + dd : src, ok);
+    }
+  }
+  // the tile's rows of Bm (then of Cm) are kChunk * N consecutive floats
+  if (vbc) {
+    for (int i = threadIdx.x; i < 2 * kChunk * N / 4; i += kFwdThreads) {
+      const int a = i / (kChunk * N / 4), r = 4 * i - a * kChunk * N;
+      const float* src = a == 0 ? Bm : Cm;
+      const bool ok = t0 + r / N < T;
+      cp_async16(buf + L::kB + 4 * i, ok ? src + (row + t0) * N + r : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * kChunk * N; i += kFwdThreads) {
+      const int a = i / (kChunk * N), r = i - a * kChunk * N;
+      const float* src = a == 0 ? Bm : Cm;
+      const bool ok = t0 + r / N < T;
+      cp_async4(buf + L::kB + i, ok ? src + (row + t0) * N + r : src, ok);
+    }
+  }
+}
+
+// Step s of a channel's scan from the staged tile, on thread j's share of
+// its states: sx, sdt the channel's x and dt (stride kChans), sB, sC the
+// tile's rows. Returns y, the same bits in each of the channel's threads
+// (their shares added by xor shuffles: each sum's two terms in either
+// order). The rounding points are fixed (explicit fmaf and __fmul_rn), so
+// that K3a and K3b give the same bits.
+template <int N>
+__device__ __forceinline__ float fwd_step(float (&h)[FwdLayout<N>::kStates], const float (&a2)[FwdLayout<N>::kStates],
+                                          const float* sx, const float* sdt, const float* sB, const float* sC,
+                                          float skip, int j, int s) {
+  using L = FwdLayout<N>;
+  const float xv = sx[s * L::kChans], dv = sdt[s * L::kChans];
+  const float dtx = __fmul_rn(dv, xv);
+  float acc = 0.f;
+#pragma unroll
+  for (int g = 0; g < L::kStates / 4; ++g) {
+    const float4 bq = *reinterpret_cast<const float4*>(sB + s * N + L::state(4 * g, j));
+    const float4 cq = *reinterpret_cast<const float4*>(sC + s * N + L::state(4 * g, j));
+    const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+    const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * g + k;
+      h[i] = fmaf(ex2_approx(__fmul_rn(dv, a2[i])), h[i], __fmul_rn(bv[k], dtx));
+      acc = fmaf(cv[k], h[i], acc);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < L::kSplit; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return fmaf(skip, xv, acc);
+}
+
 template <int N, bool kStates>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm)
 scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ Dp,
                 float* __restrict__ y, float* __restrict__ h0, int T, int D, int n_chunks) {
-  static_assert(N % 4 == 0, "N must be a multiple of 4");
-  __shared__ __align__(16) float sB[kTimeTile][N];
-  __shared__ __align__(16) float sC[kTimeTile][N];
+  using L = FwdLayout<N>;
+  constexpr int M = L::kStates;
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
-  const int d = blockIdx.x * kFwdThreads + threadIdx.x;
+  const int ch = threadIdx.x / L::kSplit, j = threadIdx.x % L::kSplit;  // the thread's channel and share
+  const int d0 = blockIdx.x * L::kChans, d = d0 + ch;
   const bool active = d < D;
-  float a2[N], h[N];
+  const bool vx = (D & 3) == 0 && ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(dt)) & 15) == 0;
+  const bool vbc = ((reinterpret_cast<size_t>(Bm) | reinterpret_cast<size_t>(Cm)) & 15) == 0;
+  float a2[M], h[M];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a2[n] = active ? A[(size_t)d * N + n] * kLog2e : 0.f;
-    h[n] = 0.f;
+  for (int i = 0; i < M; ++i) {
+    a2[i] = active ? A[(size_t)d * N + L::state(i, j)] * kLog2e : 0.f;
+    h[i] = 0.f;
   }
   const float skip = active ? Dp[d] : 0.f;
   const size_t row = (size_t)b * T;
-  for (int t0 = 0; t0 < T; t0 += kTimeTile) {
-    const int nt = min(kTimeTile, T - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < nt * N; i += kFwdThreads) {
-      const int s = i / N, n = i - s * N;
-      sB[s][n] = Bm[(row + t0 + s) * N + n];
-      sC[s][n] = Cm[(row + t0 + s) * N + n];
+  stage_fwd_tile<N>(smem, x, dt, Bm, Cm, b, 0, T, D, d0, vx, vbc);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * kChunk;
+    if (kStates && active) {  // the state before step t0: chunk c's initial state
+      float* hc = h0 + ((size_t)b * n_chunks + c) * N * D + d;
+#pragma unroll
+      for (int i = 0; i < M; ++i) hc[(size_t)L::state(i, j) * D] = h[i];
     }
+    cp_async_wait<0>();
+    // tile c is in shared memory for every thread, and every thread has
+    // finished tile c - 1, whose stage the next copy overwrites
     __syncthreads();
-    if (!active) continue;
-    for (int s = 0; s < nt; ++s) {
-      const int t = t0 + s;
-      if (kStates && t % kChunk == 0) {
-        float* hc = h0 + ((size_t)b * n_chunks + t / kChunk) * N * D + d;
+    if (c + 1 < n_chunks)
+      stage_fwd_tile<N>(smem + ((c + 1) & 1) * L::kStage, x, dt, Bm, Cm, b, t0 + kChunk, T, D, d0, vx, vbc);
+    cp_async_commit();
+    // a channel past D runs on the staged zeros (its threads' shuffles need
+    // the whole warp) and stores nothing
+    const bool store = active && j == 0;
+    const float* buf = smem + (c & 1) * L::kStage;
+    const float* sx = buf + L::kX + ch;
+    const float* sdt = buf + L::kDt + ch;
+    float* yc = y + (row + t0) * D + d;
+    if (t0 + kChunk <= T) {  // a full tile: a fixed count of steps, unrolled
 #pragma unroll
-        for (int n = 0; n < N; ++n) hc[(size_t)n * D] = h[n];
+      for (int s = 0; s < kChunk; ++s) {
+        const float v = fwd_step<N>(h, a2, sx, sdt, buf + L::kB, buf + L::kC, skip, j, s);
+        if (store) yc[(size_t)s * D] = v;
       }
-      const size_t off = (row + t) * D + d;
-      const float xv = x[off], dv = dt[off];
-      const float dtx = dv * xv;
-      const float4* b4 = reinterpret_cast<const float4*>(sB[s]);
-      const float4* c4 = reinterpret_cast<const float4*>(sC[s]);
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 bq = b4[q], cq = c4[q];
-        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-        const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int n = 4 * q + k;
-          h[n] = exp2f(dv * a2[n]) * h[n] + bv[k] * dtx;
-          acc += cv[k] * h[n];
-        }
+    } else {  // the ragged last tile
+      for (int s = 0; s < T - t0; ++s) {
+        const float v = fwd_step<N>(h, a2, sx, sdt, buf + L::kB, buf + L::kC, skip, j, s);
+        if (store) yc[(size_t)s * D] = v;
       }
-      y[off] = acc + skip * xv;
     }
   }
 }
@@ -141,14 +284,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// 2^v on the special-function unit (ex2.approx.ftz: at most 2 ulp; a decay
-// below 2^-126 becomes 0), for every decay of K3c.
-__device__ __forceinline__ float ex2_approx(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
 }
 
 // K consecutive floats p[0 .. K) of a lane, one 64-bit access at K = 2.
@@ -179,19 +314,6 @@ template <int W>
 __device__ __forceinline__ float rs_pair(float lo, float hi, int lane) {
   const bool up = lane & W;
   return (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, W);
-}
-
-// 4-byte cp.async into shared memory; `ok` false fills the word with 0
-// (src is then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
 }
 
 // K3c's shared memory, in floats: two stages of one chunk's inputs, then the
@@ -446,12 +568,13 @@ template <int N>
 cudaError_t launch_fwd(const float* x, const float* dt, const float* A, const float* Bm,
                        const float* Cm, const float* Dp, float* y, float* h0, int batch, int T,
                        int D, cudaStream_t stream) {
-  const dim3 grid((D + kFwdThreads - 1) / kFwdThreads, batch);
+  const dim3 grid((D + FwdLayout<N>::kChans - 1) / FwdLayout<N>::kChans, batch);
   const int n_chunks = (T + kChunk - 1) / kChunk;
-  if (h0 != nullptr)
-    scan_fwd_kernel<N, true><<<grid, kFwdThreads, 0, stream>>>(x, dt, A, Bm, Cm, Dp, y, h0, T, D, n_chunks);
-  else
-    scan_fwd_kernel<N, false><<<grid, kFwdThreads, 0, stream>>>(x, dt, A, Bm, Cm, Dp, y, h0, T, D, n_chunks);
+  const size_t smem = sizeof(float) * FwdLayout<N>::kTotal;
+  auto* kernel = h0 != nullptr ? scan_fwd_kernel<N, true> : scan_fwd_kernel<N, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFwdThreads, smem, stream>>>(x, dt, A, Bm, Cm, Dp, y, h0, T, D, n_chunks);
   return cudaGetLastError();
 }
 

@@ -74,14 +74,15 @@ def _banded(mel: np.ndarray, window: np.ndarray, n_fft: int) -> Dict[str, np.nda
 
 # The kernel's fixed shape (csrc/fbank.cu): 256 threads a CTA, 16 complex
 # points a thread, so a frame of n_fft real samples (n_fft/2 complex points)
-# takes n_fft/32 threads and a CTA transforms 8192/n_fft frames at once, a
-# tile; at most three CTAs a SM (its __launch_bounds__).
+# takes n_fft/32 threads (two warps at n_fft 2048) and a CTA transforms
+# 8192/n_fft frames at once, a tile; at most three CTAs a SM (its
+# __launch_bounds__), two at n_fft 2048 by shared memory.
 THREADS = 256
 POINTS = 16
 CTAS_PER_SM = 3
 N_SM = 132  # streaming multiprocessors of an H100 SXM
 SM_SMEM = 233472  # shared memory of one SM on sm_90 (228 KB)
-FFT_SIZES = (128, 256, 512, 1024)
+FFT_SIZES = (128, 256, 512, 1024, 2048)
 
 
 def _align4(n: int) -> int:
@@ -91,7 +92,7 @@ def _align4(n: int) -> int:
 def fft_radices(n_fft: int) -> List[int]:
     """The kernel's radix passes over the n_fft/2-point complex FFT: 16 while
     more than 16 points remain, then the rest (n_fft 128 → 16·4, 256 → 16·8,
-    512 → 16·16, 1024 → 16·16·2)."""
+    512 → 16·16, 1024 → 16·16·2, 2048 → 16·16·4)."""
     if n_fft not in FFT_SIZES:
         raise ValueError(f"the fbank kernel takes n_fft in {FFT_SIZES}, not {n_fft}")
     rest, out = n_fft // 2, []

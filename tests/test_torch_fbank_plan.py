@@ -4,8 +4,9 @@ csrc/fbank.cu runs on the card only. What it computes is held here: a NumPy
 emulation of its half-length FFT (the even/odd packing, the radix passes in
 the kernel's order with its shared-memory indexing and twiddle table, the
 register layout after the last pass and the split post-pass with its
-partner lanes) against np.fft.rfft; then K1 and K1′ emulated end to end,
-framed tile by tile from the Python launch plan, against their plain twins.
+partner lanes, through the exchange buffer where a frame spans two warps)
+against np.fft.rfft; then K1 and K1′ emulated end to end, framed tile by
+tile from the Python launch plan, against their plain twins.
 """
 
 import numpy as np
@@ -57,7 +58,9 @@ def kernel_power(x, tw_re, tw_im):
     P = n_fft/32 holds z[t + P·r] in register r; Stockham passes of
     `fft_radices` through the padded exchange buffer; then the mirrored
     bins k = t + P·w and M - k, w < 8, from Z[k] in a register and Z[M-k]
-    from lane (P - t) mod P, and M/2 on thread 0."""
+    from lane (P - t) mod P (at P = 64, two warps a frame, through the
+    exchange buffer: thread t stores its 8 partner values at
+    pad(P·w + t) and reads lane (P - t) mod P's), and M/2 on thread 0."""
     F, n_fft = x.shape
     M, P = n_fft // 2, n_fft // 32
     t = np.arange(P)
@@ -112,8 +115,17 @@ def kernel_power(x, tw_re, tw_im):
 
     power = np.full((F, M + 1), np.nan, np.float32)
     partner = (P - t) % P
+    if P > 32:  # the partners cross the exchange buffer, which holds nothing else now
+        buf_re[:] = np.nan
+        buf_im[:] = np.nan
+        for w in range(8):
+            buf_re[:, _pad(P * w + t)] = re[reg(15 - w)]
+            buf_im[:, _pad(P * w + t)] = im[reg(15 - w)]
+        partners = [(buf_re[:, _pad(P * w + partner)], buf_im[:, _pad(P * w + partner)]) for w in range(8)]
+    else:  # by shuffle from lane (P - t) mod P
+        partners = [(re[reg(15 - w)][:, partner], im[reg(15 - w)][:, partner]) for w in range(8)]
     for w in range(8):  # thread t: bins t + P·w and their mirrors
-        pr, pi = re[reg(15 - w)][:, partner].copy(), im[reg(15 - w)][:, partner].copy()
+        pr, pi = partners[w][0].copy(), partners[w][1].copy()
         pr[:, 0], pi[:, 0] = re[reg((16 - w) % 16)][:, 0], im[reg((16 - w) % 16)][:, 0]
         mirrored_pair(power, re[reg(w)], im[reg(w)], pr, pi, t + P * w)
     ar, ai = re[reg(8)][:, :1], im[reg(8)][:, :1]  # thread 0: M/2, its own mirror
@@ -141,7 +153,17 @@ def emulate(x, T, consts, frame_len, shift, n_fft, n_mels, pad, scale, preemph, 
                 frames.append(staged[f * shift : f * shift + frame_len])
                 dest.append((b, t0 + f))
     raw = np.stack(frames).astype(np.float32) * np.float32(scale)
-    mean = raw.sum(1, dtype=np.float32) / np.float32(frame_len) if remove_dc else np.zeros(len(raw), np.float32)
+    P = n_fft // 32
+    if remove_dc and P > 32:
+        # a frame of two warps: thread t holds samples 2(t + P·r) and the
+        # next; each warp sums its threads' samples, then the two halves add
+        half = (np.arange(frame_len) // 2) % P < 32
+        total = raw[:, half].sum(1, dtype=np.float32) + raw[:, ~half].sum(1, dtype=np.float32)
+        mean = total / np.float32(frame_len)
+    elif remove_dc:
+        mean = raw.sum(1, dtype=np.float32) / np.float32(frame_len)
+    else:
+        mean = np.zeros(len(raw), np.float32)
     d = raw - mean[:, None]
     if preemph:
         d = np.concatenate([d[:, :1] * np.float32(1 - preemph), d[:, 1:] - np.float32(preemph) * d[:, :-1]], 1)
@@ -178,7 +200,7 @@ def emulate_logmel(x, fs, sh, sr, n_mels=23):
     return emulate(x, T, c, n_fft, sh, n_fft, n_mels, n_fft // 2, 1.0, 0.0, False, True, 1e-10)
 
 
-@pytest.mark.parametrize("n_fft", [128, 256, 512, 1024])
+@pytest.mark.parametrize("n_fft", [128, 256, 512, 1024, 2048])
 def test_kernel_fft_is_the_real_input_fft(n_fft):
     rng = np.random.default_rng(n_fft)
     x = rng.standard_normal((6, n_fft)).astype(np.float32)
@@ -211,14 +233,17 @@ def test_mel_band_bounds_every_non_zero_weight(sr, n_mels, kind):
 
 
 def test_pass_structure():
-    assert [K1.fft_radices(n) for n in (128, 256, 512, 1024)] == [[16, 4], [16, 8], [16, 16], [16, 16, 2]]
-    assert [K1.slots(n) for n in (128, 256, 512, 1024)] == [64, 32, 16, 8]
-    for n in (64, 2048, 400):
+    sizes = (128, 256, 512, 1024, 2048)
+    assert [K1.fft_radices(n) for n in sizes] == [[16, 4], [16, 8], [16, 16], [16, 16, 2], [16, 16, 4]]
+    assert [K1.slots(n) for n in sizes] == [64, 32, 16, 8, 4]
+    for n in (64, 400):
         with pytest.raises(ValueError):
             K1.fft_radices(n)
 
 
-CASES = [(16000, 80, 16000), (16000, 80, 16550), (8000, 80, 12000), (8000, 40, 8123)]
+# 44.1 and 48 kHz take n_fft 2048: a frame of two warps
+CASES = [(16000, 80, 16000), (16000, 80, 16550), (8000, 80, 12000), (8000, 40, 8123), (48000, 80, 48000),
+         (44100, 80, 44100)]
 
 
 @pytest.mark.parametrize("sr,n_mels,n", CASES)
@@ -234,7 +259,7 @@ def test_emulated_k1_matches_its_twin(sr, n_mels, n):
 
 @pytest.mark.parametrize("sr,fs,sh,shape", [(8000, 200, 80, (2, 8000)), (16000, 400, 160, (2, 16000)),
                                             (8000, 200, 80, (3, 8123)), (8000, 200, 80, (2, 100)),
-                                            (16000, 400, 160, (2, 16010))])
+                                            (16000, 400, 160, (2, 16010)), (48000, 1200, 480, (2, 48000))])
 def test_emulated_k1prime_matches_its_twin(sr, fs, sh, shape):
     rng = np.random.default_rng(shape[1] + sr)
     x = (0.1 * rng.standard_normal(shape)).astype(np.float32)
@@ -246,13 +271,13 @@ def test_emulated_k1prime_matches_its_twin(sr, fs, sh, shape):
 
 
 def _plans():
-    """(entry, n_fft, B, T, plan) over both entries at n_fft 256 and 512."""
-    for sr in (8000, 16000):
+    """(entry, n_fft, B, T, plan) over both entries at n_fft 256, 512 and
+    2048 (48 kHz)."""
+    for sr in (8000, 16000, 48000):
         win, shift, n_fft = TF.frame_params(sr)
         for n_mels in (23, 40, 80):
             kal = K1._host_consts(sr, n_mels, win, n_fft)["mel_w"].shape[1]
-            fs = 200 if sr == 8000 else 400
-            lm = K1._logmel_consts(sr, n_mels, fs, n_fft)["mel_w"].shape[1]
+            lm = K1._logmel_consts(sr, n_mels, win, n_fft)["mel_w"].shape[1]
             for B, T in ((1, 1), (2, 2), (3, 101), (64, 398), (64, 3998), (32, 5000), (200, 31)):
                 yield "fbank", n_fft, B, T, K1.launch_plan(B, T, win, shift, n_fft, n_mels, kal)
                 yield "logmel", n_fft, B, T, K1.launch_plan(B, T, n_fft, shift, n_fft, n_mels, lm)

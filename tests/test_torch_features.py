@@ -12,8 +12,9 @@ from speaker_diarization_tpu_torch.ops import features as TF
 
 torch.set_num_threads(1)
 
-# (sample_rate, mel bins, samples); 16550 is not a multiple of the shift
-CASES = [(16000, 80, 16000), (16000, 80, 16550), (8000, 80, 12000), (8000, 40, 8123)]
+# (sample_rate, mel bins, samples); 16550 is not a multiple of the shift;
+# 48 kHz takes n_fft 2048
+CASES = [(16000, 80, 16000), (16000, 80, 16550), (8000, 80, 12000), (8000, 40, 8123), (48000, 80, 48000)]
 
 
 @pytest.mark.parametrize("sr,n_mels,n", CASES)

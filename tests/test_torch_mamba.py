@@ -59,10 +59,11 @@ def test_fwd_twin_matches_pallas_and_sequential(T, chunk, seed):
     np.testing.assert_allclose(got, want_seq, atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("chunk", [8, 128])
+@pytest.mark.parametrize("chunk", [8, 16, 128])
 def test_states_twin_matches_pallas_fwd_with_states(chunk):
     """K3b's twin: y and every chunk's initial state at the JAX kernel's L
-    (chunk 8 → L = 8, 5 chunks; chunk 128 → L = 40, one chunk)."""
+    (chunk 8 → L = 8, 5 chunks; chunk 16, the CUDA kernel's CHUNK → L = 16,
+    3 chunks, the last ragged; chunk 128 → L = 40, one chunk)."""
     args = _rand(T=37, seed=3)
     x, delta, A, Bm, C, Dp = map(jnp.asarray, args)
     xp, dp, bp, cp, L, n_chunks, T = jssp._pad_args(x, delta, Bm, C, chunk)
