@@ -47,9 +47,26 @@ each with the launch counts set to 0 just before and read just after:
   fbank 1 per step, five steps on one fixed batch must lower the loss; and
   the embedding forward `extract-embeddings` runs (fp32, batch 32 × 6 s):
   fbank 1;
+- the same EEND-EDA forward, infer and train steps with the conformer
+  encoder the CLI builds (GroupNorm in the conv module): logmel 1 each;
+- TS-VAD with conformer single and multi backends, and with a transformer
+  single and a BiLSTM multi backend (TSVADConfig() widths, bf16, batch 64 ×
+  4 s): fbank 1, cam_block 3, fcm 1 a forward, held to the plain twins;
+  five adam steps on one fixed batch (fbank 1 each) must lower the loss;
+- TS-VAD with ECAPA-TDNN (1024 channels) at the leaderboard's ecapa stage
+  settings (8 kHz, 80 bins, batch 32 × 4 s, bf16): fbank 1 a forward and a
+  step, five steps on one batch must lower the loss; a ResNet34 forward
+  (fbank 1); both held to the plain twin;
+- speaker-encoder pretraining with ECAPA (512 channels) and ResNet34 at
+  stage 2's settings: fbank 1 a step, five steps on one batch must lower
+  the loss;
+- a TS-VAD train step with remat on and off (CAM++'s dense layers
+  recomputed in the backward pass): the same loss, and the peak memory
+  (`torch.cuda.max_memory_allocated`) of each;
 then the CLI: `infer --family tsvad` + `score` from flax-layout weights,
-`train --family tsvad` (Mamba, batch 64 × 4 s, bf16, with validation and
-checkpoints) followed by `infer --exp-dir`, and `train --family eend` /
+`train --family tsvad` (Mamba, two comma-separated --train-dir corpora,
+batch 64 × 4 s, bf16, with validation and checkpoints) followed by `infer
+--exp-dir`, and `train --family eend` /
 `eend_eda` followed by `infer --exp-dir --threshold-sweep` + `score`, on
 generated corpora; and the hermetic TS-VAD recipe at full width on a small
 corpus: `simulate` (a voice pool; train, valid and test mixtures of 3
@@ -59,7 +76,9 @@ speakers at 8 kHz) → `train --family spk` → `export-encoder` →
 hermetic recipe's stages 1-2 and 5-6 on the same corpus (`train --family
 tsvad_streaming` and `train --family tsvad` with BiMamba-2 backends and the
 exported encoder, 4 steps each, each followed by `infer --threshold-sweep`
-and `score`), each stage's output checked. Each phase prints one line and raises on failure. The
+and `score`), the torch leaderboard's ecapa stage (4 steps, `infer
+--threshold-sweep --cder`, `score --cder`), `simulate-meetings` and
+`config-dump` in its three formats, each stage's output checked. Each phase prints one line and raises on failure. The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
@@ -746,6 +765,55 @@ def recipe_chain():
         if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
             raise AssertionError(f"CLI score printed no DER line: {line!r}")
         phase("cli", f"score (hermetic recipe, test): DER/MS/FA/SC {line}")
+
+        # the leaderboard's ecapa stage (recipes/hermetic_leaderboard_torch.sh):
+        # TS-VAD with a scratch ECAPA-TDNN at its flags, 4 steps, then the
+        # sweep and the score with CDER beside DER
+        ec_exp, hyp = os.path.join(tmp, "tsvad_ecapa"), os.path.join(tmp, "hyp_tsvad_ecapa.rttm")
+        ec_sets = ["speech_encoder_type=ecapa", "sample_rate=8000", "n_mels=80", "rs_len=4.0"]
+        t0 = time.perf_counter()
+        cli("train", "--family", "tsvad", "--train-dir", os.path.join(tmp, "train", "data"), "--valid-dir",
+            os.path.join(tmp, "valid", "data"), "--exp-dir", ec_exp, "--emb-store",
+            f"{stores['train']},{stores['valid']}", "--noise-dir", f"{pool}/noise",
+            *[a for kv in ec_sets + ["segment_shift=2.0", "batch_size=32", "num_steps=4", "optimizer=adam",
+                                     "schedule=poly", "learning_rate=2e-4", "warmup_steps=400", "bf16=true",
+                                     "log_every=2", "valid_every=2"] for a in ("--set", kv)], timeout=900)
+        trains, valids, ckpts = read_metrics(ec_exp)
+        if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in trains + valids) \
+                or not ckpts:
+            raise AssertionError(f"CLI train (ecapa stage) did not log, validate and checkpoint: {trains}, {valids}")
+        out = cli("infer", "--family", "tsvad", "--data-dir", test, "--exp-dir", ec_exp, "--emb-store",
+                  stores["test"], "--out", hyp, "--threshold-sweep", "--ref", f"{test}/rttm", "--cder",
+                  *[a for kv in ec_sets for a in ("--set", kv)])
+        sweep = [ln for ln in out.splitlines() if ln.startswith("threshold ")]
+        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", out)
+        if len(sweep) != 18 or not best or not all(re.search(r"  CDER (\d+\.\d{3}|nan)$", ln) for ln in sweep):
+            raise AssertionError(f"CLI infer --cder (ecapa stage) printed no CDER sweep:\n{out}")
+        lines = cli("score", "--ref", f"{test}/rttm", "--sys", f"{hyp}_{float(best.group(1)):.2f}", "--cder")
+        lines = lines.strip().splitlines()
+        if len(lines) < 2 or not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", lines[-2]) \
+                or not lines[-1].startswith("CDER avg = "):
+            raise AssertionError(f"CLI score --cder printed {lines}")
+        phase("cli", f"ecapa stage (train 4 steps, bf16, batch 32 x 4 s; infer --threshold-sweep --cder; score "
+              f"--cder): {time.perf_counter() - t0:.1f} s; best threshold {best.group(1)}: DER/MS/FA/SC {lines[-2]}, "
+              f"{lines[-1]}")
+
+        # simulate-meetings from the voice pool, and config-dump in its three formats
+        t0 = time.perf_counter()
+        meet = os.path.join(tmp, "meetings")
+        cli("simulate-meetings", "--out", meet, "--source-dir", f"{pool}/src", "--noise-dir", f"{pool}/noise",
+            "--seed", "3")
+        n_meet = len(read_rttm(os.path.join(meet, "data", "rttm")))
+        with open(os.path.join(meet, "data", "wav.scp")) as f:
+            n_wav = sum(1 for _ in f)
+        dumps = {fmt: cli("config-dump", "--format", fmt, "--set", "family=tsvad", "--set", "remat=true")
+                 for fmt in ("json", "bash", "yaml")}
+        cfg_json = json.loads(dumps["json"])
+        if not (n_meet and n_wav) or cfg_json["family"] != "tsvad" or cfg_json["remat"] is not True \
+                or 'family="tsvad"' not in dumps["bash"].splitlines() or "remat: True" not in dumps["yaml"].splitlines():
+            raise AssertionError(f"simulate-meetings ({n_wav} meetings, {n_meet} turns) or config-dump went wrong")
+        phase("cli", f"simulate-meetings: {n_wav} meetings, {n_meet} turns; config-dump json/bash/yaml: "
+              f"{len(cfg_json)} keys each; {time.perf_counter() - t0:.1f} s")
 
         # the second hermetic recipe (recipes/hermetic_streaming_and_eda_torch.sh)
         # on the same corpus, stores and encoder: stages 1-2 (streaming TS-VAD)
@@ -1476,8 +1544,9 @@ def main() -> int:
     from speaker_diarization_tpu_torch.train.tasks import make_eda_loss, make_eend_loss
 
     eend_launches = {}
-    for fam, tag in (("eend", "eend"), ("eend_eda", "eda")):
-        emodel, ecfg = eend_model(fam, dev, seed=3)
+    for fam, tag, over in (("eend", "eend", {}), ("eend_eda", "eda", {}),
+                           ("eend_eda", "eda_conformer", dict(encoder_type="conformer"))):
+        emodel, ecfg = eend_model(fam, dev, seed=3, **over)
         eb = make_eend_batches(ecfg, EEND_BATCH, 3, seed=4, device=dev)
         fwd = eend_forward(emodel)
         want_shape = (EEND_BATCH, ecfg.chunk_frames, ecfg.n_speakers if fam == "eend" else ecfg.max_attractors)
@@ -1490,12 +1559,12 @@ def main() -> int:
             else:
                 out, probs = emodel.infer(eb[1]["audio"], eb[1]["frame_mask"])
             torch.cuda.synchronize()
-            eend_launches[fam] = read_counts()
-            phase(tag, f"{fam} bf16 {tuple(eb[1]['audio'].shape)} -> logits {tuple(out.shape)}"
-                  + (f", exist probs {tuple(probs.shape)}" if probs is not None else "")
-                  + f"; launches {eend_launches[fam]}")
-            if eend_launches[fam] != want(logmel=1):
-                raise AssertionError(f"{fam} forward launches {eend_launches[fam]}, want logmel 1")
+            eend_launches[tag] = read_counts()
+            phase(tag, f"{fam} ({ecfg.encoder_type} encoder) bf16 {tuple(eb[1]['audio'].shape)} -> logits "
+                  f"{tuple(out.shape)}" + (f", exist probs {tuple(probs.shape)}" if probs is not None else "")
+                  + f"; launches {eend_launches[tag]}")
+            if eend_launches[tag] != want(logmel=1):
+                raise AssertionError(f"{tag} forward launches {eend_launches[tag]}, want logmel 1")
             if tuple(out.shape) != want_shape or not torch.isfinite(out).all() or (
                     probs is not None and (tuple(probs.shape) != (EEND_BATCH, ecfg.max_attractors)
                                            or not torch.isfinite(probs).all())):
@@ -1511,7 +1580,7 @@ def main() -> int:
                                                            f"; exist probs mean-abs {p_err:.3e} (bar 5e-2)"))
             if not (mean_err <= 5e-2 * scale and p_err <= 5e-2):
                 raise AssertionError(f"bf16 {fam} forward disagrees with the plain twin: {mean_err}, {p_err}")
-            m32, _ = eend_model(fam, dev, seed=3, bf16=False)
+            m32, _ = eend_model(fam, dev, seed=3, bf16=False, **over)
             a8, f8 = eb[2]["audio"][:8], eb[2]["frame_mask"][:8]
             f8 = f8.clone()
             f8[1, 400:] = 0.0  # padded frames too
@@ -1524,7 +1593,7 @@ def main() -> int:
                 raise AssertionError(f"fp32 {fam} forward disagrees with the plain twin: max-abs {err32}")
             del m32
         tpe = eend_throughput(emodel, eb, iters=5 if fam == "eend_eda" else 10, reps=3)
-        phase("throughput", f"{fam} bf16 batch {EEND_BATCH} x 50 s: {tpe['ms_per_forward']:.3f} ms/forward, "
+        phase("throughput", f"{tag} bf16 batch {EEND_BATCH} x 50 s: {tpe['ms_per_forward']:.3f} ms/forward, "
               f"{tpe['audio_s_per_s']:.1f} audio-s/s (checksum {tpe['witness']:.6e}, "
               f"reps {[round(r, 4) for r in tpe['reps_s']]})")
 
@@ -1533,15 +1602,15 @@ def main() -> int:
         # only with the weights; random full-width EDA weights make the
         # 500-step LSTM chaotic, and a first adam step above a few 1e-6 (every
         # weight moves by lr) throws the attractors about before it helps
-        fmodel, _ = eend_model(fam, dev, seed=3, dropout=0.0)
+        fmodel, _ = eend_model(fam, dev, seed=3, dropout=0.0, **over)
         loss = make_eend_loss() if fam == "eend" else make_eda_loss(shuffle_frames=False)
         lr = 1e-4 if fam == "eend" else 3e-6
         fixed = Trainer(fmodel, loss, TrainerConfig(optimizer="adam", schedule="const", learning_rate=lr))
-        elosses, etl = fixed_batch_steps(fixed, eb[0], want(logmel=1), fam)
-        phase("train", f"{fam}: 5 adam steps at {lr:g} on one batch (bf16, dropout 0, {EEND_BATCH} x 50 s): losses "
+        elosses, etl = fixed_batch_steps(fixed, eb[0], want(logmel=1), tag)
+        phase("train", f"{tag}: 5 adam steps at {lr:g} on one batch (bf16, dropout 0, {EEND_BATCH} x 50 s): losses "
               f"{[round(v, 5) for v in elosses]}; launches per step {etl}")
         tte = train_throughput(eend_recipe_trainer(emodel, fam), eb, iters=3, reps=3)
-        phase("throughput", f"{fam} train step (recipe: adam, noam, lr 1.0, warmup 800, clip 5, bf16, batch "
+        phase("throughput", f"{tag} train step (recipe: adam, noam, lr 1.0, warmup 800, clip 5, bf16, batch "
               f"{EEND_BATCH} x 50 s): {tte['ms_per_step']:.3f} ms/step (loss checksum {tte['witness']:.6e}, "
               f"reps {[round(r, 4) for r in tte['reps_s']]})")
         del emodel, fmodel, fixed, eb
@@ -1585,6 +1654,122 @@ def main() -> int:
           f"8 kHz): {et['ms_per_forward']:.3f} ms/forward, {et['windows_per_s']:.1f} windows/s (checksum "
           f"{et['witness']:.6e}, reps {[round(r, 4) for r in et['reps_s']]})")
     del encoder
+
+    # ---- TS-VAD with the conformer and BiLSTM backends at TSVADConfig()
+    # widths (bf16, batch 64 x 4 s, 16 kHz): the inference forward runs the
+    # fused CAM++ path (fbank 1, cam_block 3, fcm 1), held to the plain
+    # twins; five adam steps at 1e-4 on one fixed batch (CAM++ on its module
+    # path in train mode, so fbank 1 a step) must lower the loss (at 1e-3 the
+    # fresh conformer's loss jumps about: 0.89, 1.74, 1.20, 0.73, 0.99)
+    for single, multi in (("conformer", "conformer"), ("transformer", "lstm")):
+        tag = f"{single}/{multi}"
+        bcfg = dataclasses.replace(cfg, single_backend_type=single, multi_backend_type=multi)
+        bmodel = TSVADModel(bcfg, dtype="bf16", device=dev, seed=0)
+        with torch.no_grad():
+            bmodel(audios[0], embss[0], n_label)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            blogits = bmodel(audios[1], embss[1], n_label)
+            torch.cuda.synchronize()
+            blaunches = read_counts()
+            ref = plain_forward(bmodel, audios[1], embss[1], n_label)
+        mean_err, scale = (blogits - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
+        phase("backends", f"TS-VAD {tag} bf16 (64, 64000) -> {tuple(blogits.shape)}; launches {blaunches}; vs "
+              f"plain twins mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f})")
+        if blaunches != want(fbank=1, cam_block=3, fcm=1) or tuple(blogits.shape) != (64, 100, 4) \
+                or not torch.isfinite(blogits).all() or not mean_err <= 5e-2 * scale:
+            raise AssertionError(f"TS-VAD {tag}: launches {blaunches}, mean-abs {mean_err} against the twins")
+        tpb = throughput(bmodel, audios, embss, n_label, iters=10, reps=3)
+        dev_ms = profile(torch.no_grad()(lambda: bmodel(audios[0], embss[0], n_label)))[1]
+        phase("throughput", f"TS-VAD {tag} bf16 batch 64 x 4 s: {tpb['ms_per_forward']:.3f} ms/forward, "
+              f"{tpb['audio_s_per_s']:.1f} audio-s/s (checksum {tpb['witness']:.6e}, reps "
+              f"{[round(r, 4) for r in tpb['reps_s']]}), device {dev_ms:.3f} ms/forward, busy "
+              f"{dev_ms / tpb['ms_per_forward']:.3f}")
+        bbatches = make_train_batches(bcfg, 64, 4.0, 2, seed=8, device=dev)
+        fixed = Trainer(bmodel, make_tsvad_loss(n_label),
+                        TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
+        losses, blt = fixed_batch_steps(fixed, bbatches[0], want(fbank=1), f"TS-VAD {tag}")
+        tt = train_throughput(recipe_trainer(bmodel, n_label), bbatches, iters=3, reps=2)
+        phase("train", f"TS-VAD {tag}: 5 adam steps at 1e-4 on one batch (bf16, 64 x 4 s): losses "
+              f"{[round(v, 5) for v in losses]}; launches per step {blt}; recipe step {tt['ms_per_step']:.3f} ms")
+        del bmodel, fixed, bbatches
+
+    # ---- TS-VAD with ECAPA-TDNN (1024 channels, frames at 100 Hz, a stride-4
+    # conv to 25 Hz) at the leaderboard's ecapa stage settings: 8 kHz, 80
+    # bins, batch 32 x 4 s, bf16; the encoder has no kernel of its own, so
+    # fbank 1 a forward and a step; then a ResNet34 forward (12.5 Hz frames
+    # upsampled x2 by the flax-SAME transposed conv)
+    ecfg8 = dataclasses.replace(cfg, speech_encoder_type="ecapa", sample_rate=8000)
+    ea8, ee8 = make_inputs(ecfg8, 32, 4.0, 3, seed=9, device=dev)
+    for enc_type in ("ecapa", "resnet34"):
+        ccfg = dataclasses.replace(ecfg8, speech_encoder_type=enc_type)
+        cmodel = TSVADModel(ccfg, dtype="bf16", device=dev, seed=0)
+        with torch.no_grad():
+            cmodel(ea8[0], ee8[0], n_label)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            clogits = cmodel(ea8[1], ee8[1], n_label)
+            torch.cuda.synchronize()
+            claunches = read_counts()
+            ref = plain_forward(cmodel, ea8[1], ee8[1], n_label)
+        mean_err, scale = (clogits - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
+        phase("encoders", f"TS-VAD {enc_type} bf16 (32, 32000) at 8 kHz -> {tuple(clogits.shape)}; launches "
+              f"{claunches}; vs plain twins mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f})")
+        if claunches != want(fbank=1) or tuple(clogits.shape) != (32, 100, 4) or not torch.isfinite(clogits).all() \
+                or not mean_err <= 5e-2 * scale:
+            raise AssertionError(f"TS-VAD {enc_type}: launches {claunches}, mean-abs {mean_err} against the twins")
+        tpc = throughput(cmodel, ea8, ee8, n_label, iters=10, reps=3)
+        phase("throughput", f"TS-VAD {enc_type} bf16 batch 32 x 4 s at 8 kHz: {tpc['ms_per_forward']:.3f} "
+              f"ms/forward, {tpc['audio_s_per_s']:.1f} audio-s/s (checksum {tpc['witness']:.6e})")
+        if enc_type == "ecapa":
+            cb = make_train_batches(ccfg, 32, 4.0, 2, seed=10, device=dev)
+            fixed = Trainer(cmodel, make_tsvad_loss(n_label),
+                            TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
+            losses, clt = fixed_batch_steps(fixed, cb[0], want(fbank=1), "TS-VAD ECAPA")
+            tt = train_throughput(recipe_trainer(cmodel, n_label), cb, iters=3, reps=2)
+            phase("train", f"TS-VAD ECAPA: 5 adam steps at 1e-4 on one batch (bf16, 32 x 4 s at 8 kHz): losses "
+                  f"{[round(v, 5) for v in losses]}; launches per step {clt}; recipe step {tt['ms_per_step']:.3f} ms")
+            del fixed, cb
+        del cmodel
+
+    # ---- speaker-encoder pretraining with ECAPA (512 channels) and ResNet34
+    # at stage 2's settings (AAM over 32 speakers, margin 0.3, bf16, batch 64
+    # x 2 s at 8 kHz): fbank 1 a step; five adam steps on one batch must lower
+    # the loss
+    from speaker_diarization_tpu_torch.cli.main import build_model
+
+    for enc_type in ("ecapa", "resnet34"):
+        zcfg = dataclasses.replace(scfg, speech_encoder_type=enc_type)
+        zmodel = build_model(zcfg, dev)
+        fixed = Trainer(zmodel, make_spk_loss(sample_rate=zcfg.sample_rate),
+                        TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
+        zlosses, zl = fixed_batch_steps(fixed, sb[0], want(fbank=1), f"spk {enc_type}")
+        zt = train_throughput(spk_recipe_trainer(zmodel), sb, iters=3, reps=2)
+        phase("spk", f"{enc_type}: 5 adam steps at 1e-4 on one batch (bf16, {SPK_BATCH} x {SPK_DUR_S} s at 8 kHz): "
+              f"losses {[round(v, 5) for v in zlosses]}; launches per step {zl}; recipe step {zt['ms_per_step']:.3f} ms")
+        del zmodel, fixed
+
+    # ---- remat: a TS-VAD train step (recipe settings, 8 kHz, bf16, batch 64
+    # x 4 s, dropout 0.1) with CAM++'s dense layers recomputed in the backward
+    # pass and without: the same loss from the same dropout generator, and the
+    # peak memory of each
+    rcfg = dataclasses.replace(cfg, sample_rate=8000)
+    rb = make_train_batches(rcfg, 64, 4.0, 1, seed=11, device=dev)[0]
+    peaks, rlosses = {}, {}
+    for remat in (False, True):
+        rmodel = TSVADModel(rcfg, dtype="bf16", device=dev, seed=1, remat_encoder=remat).train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = make_tsvad_loss(n_label)(rmodel, rb, torch.Generator(device=dev).manual_seed(3), True)
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[remat], rlosses[remat] = torch.cuda.max_memory_allocated() / 2**30, loss.item()
+        del rmodel, loss
+    phase("remat", f"TS-VAD train step (bf16, 64 x 4 s at 8 kHz): loss {rlosses[False]:.7f} without remat, "
+          f"{rlosses[True]:.7f} with; max_memory_allocated {peaks[False]:.3f} GiB without, {peaks[True]:.3f} GiB with")
+    if not (math.isfinite(rlosses[True]) and abs(rlosses[True] - rlosses[False]) <= 1e-6 * abs(rlosses[False])):
+        raise AssertionError(f"remat changed the TS-VAD loss: {rlosses}")
+    del rb
 
     # ---- the entry point answers requests: CLI infer + score on a generated corpus
     from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
@@ -1633,6 +1818,8 @@ def main() -> int:
                                     emb_dim=mcfg.speaker_embed_dim, seed=10, prefix="tr")
         va = write_synthetic_corpus(os.path.join(tmp, "valid"), n_recs=2, seconds=140.0, rate=16000, n_speakers=3,
                                     emb_dim=mcfg.speaker_embed_dim, seed=11, prefix="va")
+        tr2 = write_synthetic_corpus(os.path.join(tmp, "train2"), n_recs=1, seconds=60.0, rate=16000, n_speakers=3,
+                                     emb_dim=mcfg.speaker_embed_dim, seed=12, prefix="tb")
         noise_wav = os.path.join(tmp, "noise", "n0.wav")
         os.makedirs(os.path.dirname(noise_wav))
         write_wav(noise_wav, (0.1 * torch.randn(160000, generator=gen)).numpy(), 16000)
@@ -1643,8 +1830,9 @@ def main() -> int:
                 "warmup_steps=400", "bf16=true", "log_every=2", "valid_every=2", "n_layers=2",
                 "single_backend_type=mamba", "multi_backend_type=mamba"]
         cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "train", "--family", "tsvad",
-               "--train-dir", tr["data_dir"], "--valid-dir", va["data_dir"], "--exp-dir", exp,
-               "--emb-store", f"{tr['emb_store']},{va['emb_store']}", "--noise-dir", os.path.dirname(noise_wav)]
+               "--train-dir", f"{tr['data_dir']},{tr2['data_dir']}", "--valid-dir", va["data_dir"], "--exp-dir", exp,
+               "--emb-store", f"{tr['emb_store']},{tr2['emb_store']},{va['emb_store']}",
+               "--noise-dir", os.path.dirname(noise_wav)]
         cmd += [a for kv in sets for a in ("--set", kv)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
@@ -1655,7 +1843,8 @@ def main() -> int:
         trains = [r for r in recs if r["kind"] == "train"]
         valids = [r for r in recs if r["kind"] == "valid"]
         ckpts = sorted(fn for fn in os.listdir(exp) if fn.startswith("step_"))
-        phase("cli", f"train --family tsvad (Mamba, bf16, batch 64 x 4 s, 4 steps): {time.perf_counter() - t0:.1f} s; "
+        phase("cli", f"train --family tsvad (Mamba, two --train-dir corpora, bf16, batch 64 x 4 s, 4 steps): "
+              f"{time.perf_counter() - t0:.1f} s; "
               f"last log {trains[-1] if trains else None}; valid losses {[round(r['loss'], 5) for r in valids]}; "
               f"checkpoints {ckpts}")
         if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in recs) or not ckpts:

@@ -1,0 +1,112 @@
+#!/usr/bin/env bash
+# The hermetic DER leaderboard (recipes/hermetic_leaderboard.sh) on the
+# PyTorch/CUDA port, flag for flag, on the shared simulated corpus of
+# recipes/hermetic_tsvad_full_stack_torch.sh (run its stages 1-3 first:
+# corpus, encoder.npz and the embedding stores).
+#
+#   families the port runs (one training + inference stage each):
+#     eend       EEND on the shared 3-speaker corpus
+#     tsvad_rev  TS-VAD trained with image-source RIR reverberation
+#     ecapa      TS-VAD with a scratch-initialised ECAPA-TDNN speech encoder
+#   every other family of the JAX recipe prints "not ported" and is skipped;
+#   each is added here as its port lands (ROADMAP item 3).
+#
+# Runs on one CUDA GPU through the port's CLI:
+#   WORK=exp/hermetic_tsvad_torch bash recipes/hermetic_leaderboard_torch.sh [families...]
+set -euo pipefail
+
+work=${WORK:-exp/hermetic_tsvad_torch}
+rate=8000
+cli="python -m speaker_diarization_tpu_torch.cli"
+steps=${STEPS:-4000}
+steps5=${STEPS5:-5000}
+families=${@:-m2f fs_eend eend_vc sond ssnd ots_vad tsvad3 tsvad_rev}
+
+run_family() {
+  local fam=$1
+  case "$fam" in
+  tsvad_rev)
+    # reverb-aug variant: train-time convolution with image-source
+    # shoebox-room RIRs (data/room.py, genrir.py semantics)
+    python - <<'PYEOF'
+import os
+from speaker_diarization_tpu_torch.data.simulate import synthesize_rir_corpus
+work = os.environ.get("WORK", "exp/hermetic_tsvad_torch")
+d = os.path.join(work, "rir_image")
+if not os.path.exists(os.path.join(d, "wav.scp")):
+    synthesize_rir_corpus(d, n_rirs=8, rate=8000, seed=7, method="image_source")
+    print("made image-source RIRs:", d)
+PYEOF
+    $cli train --family tsvad --train-dir "$work/train/data" --valid-dir "$work/valid/data" \
+      --exp-dir "$work/tsvad_rev" --emb-store "$work/train/embs.npz,$work/valid/embs.npz" \
+      --encoder-ckpt "$work/encoder.npz" --noise-dir "$work/noise" \
+      --rir-dir "$work/rir_image" --resume \
+      --set sample_rate=$rate --set n_mels=80 --set encoder_blocks=12,24,16 \
+      --set rs_len=4.0 --set segment_shift=2.0 --set batch_size=64 \
+      --set num_steps=$steps --set optimizer=adam --set schedule=poly \
+      --set learning_rate=2e-4 --set warmup_steps=400 --set bf16=true \
+      --set log_every=20 --set valid_every=500
+    $cli infer --family tsvad --data-dir "$work/test/data" --exp-dir "$work/tsvad_rev" \
+      --emb-store "$work/test/embs.npz" --out "$work/hyp_tsvad_rev.rttm" \
+      --threshold-sweep --ref "$work/test/data/rttm" \
+      --set sample_rate=$rate --set n_mels=80 --set encoder_blocks=12,24,16 \
+      --set rs_len=4.0
+    ;;
+  eend)
+    # re-base the EEND row on the shared 3-speaker corpus (round-3 table
+    # mixed a 2-speaker round-2 row in; VERDICT r3 missing #4)
+    $cli train --family eend --train-dir "$work/train/data" \
+      --valid-dir "$work/valid/data" --exp-dir "$work/eend3" --resume \
+      --set sample_rate=$rate --set n_speakers=3 --set n_mels=23 \
+      --set d_model=256 --set d_ff=1024 --set n_layers=4 --set n_heads=4 \
+      --set chunk_frames=500 --set batch_size=32 --set num_steps=$steps5 \
+      --set optimizer=adam --set schedule=noam --set learning_rate=1.0 \
+      --set warmup_steps=1000 --set bf16=true \
+      --set log_every=20 --set valid_every=500
+    $cli infer --family eend --data-dir "$work/test/data" \
+      --exp-dir "$work/eend3" --out "$work/hyp_eend3.rttm" \
+      --threshold-sweep --ref "$work/test/data/rttm" \
+      --set sample_rate=$rate --set n_speakers=3 --set n_mels=23 \
+      --set d_model=256 --set d_ff=1024 --set n_layers=4 --set n_heads=4 \
+      --set chunk_frames=500
+    ;;
+  ecapa)
+    # non-CAM++ speech encoder trained through the TS-VAD path end-to-end
+    # (VERDICT r3 #6): scratch-initialized ECAPA-TDNN trunk
+    $cli train --family tsvad --train-dir "$work/train/data" --valid-dir "$work/valid/data" \
+      --exp-dir "$work/tsvad_ecapa" --emb-store "$work/train/embs.npz,$work/valid/embs.npz" \
+      --noise-dir "$work/noise" --resume \
+      --set speech_encoder_type=ecapa --set sample_rate=$rate --set n_mels=80 \
+      --set rs_len=4.0 --set segment_shift=2.0 --set batch_size=32 \
+      --set num_steps=$steps --set optimizer=adam --set schedule=poly \
+      --set learning_rate=2e-4 --set warmup_steps=400 --set bf16=true \
+      --set log_every=20 --set valid_every=500
+    $cli infer --family tsvad --data-dir "$work/test/data" --exp-dir "$work/tsvad_ecapa" \
+      --emb-store "$work/test/embs.npz" --out "$work/hyp_tsvad_ecapa.rttm" \
+      --threshold-sweep --ref "$work/test/data/rttm" \
+      --set speech_encoder_type=ecapa --set sample_rate=$rate --set n_mels=80 \
+      --set rs_len=4.0
+    ;;
+  m2f|fs_eend|eend_vc|sond|ssnd|ots_vad|tsvad3|vbx|enhancer_eval)
+    echo "family $fam: not ported to PyTorch yet, skipped" >&2
+    return 2
+    ;;
+  *)
+    echo "unknown family: $fam" >&2
+    exit 1
+    ;;
+  esac
+}
+
+for fam in $families; do
+  echo "=== leaderboard family: $fam ==="
+  rc=0
+  run_family "$fam" || rc=$?
+  if [ $rc -eq 0 ]; then
+    echo "=== family $fam DONE ==="
+  elif [ $rc -eq 2 ]; then
+    echo "=== family $fam not ported ==="
+  else
+    echo "=== family $fam FAILED (continuing) ==="
+  fi
+done

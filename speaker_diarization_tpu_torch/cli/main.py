@@ -3,6 +3,10 @@
     python -m speaker_diarization_tpu_torch.cli simulate --out DIR \
         [--source-dir D --noise-dir N --rir-dir R] [--n-mixtures 10] [--n-speakers 2] \
         [--sil-scale 2] [--rate 8000] [--seed 777] [--with-rir --rir-method decay|image_source]
+    python -m speaker_diarization_tpu_torch.cli simulate-meetings --out DIR --source-dir D \
+        [--noise-dir N] [--rir-dir R] [--dynamics meeting.json] [--rate 8000] [--seed 7]
+    python -m speaker_diarization_tpu_torch.cli config-dump [--config train.json] \
+        [--set key=value ...] [--format yaml|json|bash]
     python -m speaker_diarization_tpu_torch.cli train --family spk --train-dir D \
         [--valid-dir V] [--noise-dir N] --exp-dir X [--resume] [--set key=value ...] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli export-encoder --exp-dir X [--step S] --out enc.npz \
@@ -15,36 +19,41 @@
         --train-dir D[,D2] [--valid-dir V] --exp-dir X [--resume] \\
         [--set key=value ...] [--config train.json] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli train --family tsvad \\
-        --train-dir D --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
+        --train-dir D[,D2] --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
         [--noise-dir N] [--rir-dir R] [--encoder-ckpt enc.npz] [--resume] \\
         [--set key=value ...] [--config train.json] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli train --family tsvad_streaming \\
-        --train-dir D --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
+        --train-dir D[,D2] --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
         [--noise-dir N] [--rir-dir R] [--resume] [--set key=value ...] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli infer [--family eend|eend_eda] \\
         --data-dir DIR --exp-dir X [--step S] [--avg-last K] --out hyp.rttm \\
         [--set key=value ...] [--attractor-threshold 0.5] \\
-        [--threshold-sweep --ref ref.rttm] [--device cpu]
+        [--threshold-sweep --ref ref.rttm [--cder]] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli infer --family tsvad|tsvad_streaming \\
         --data-dir DIR --emb-store EMB.npz (--exp-dir X [--step S] [--avg-last K] \\
         | --params PARAMS.npz [--config tsvad.json]) --out hyp.rttm \\
-        [--set key=value ...] [--rs-len 4] [--threshold-sweep --ref ref.rttm] [--device cpu]
-    python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm
+        [--set key=value ...] [--rs-len 4] [--threshold-sweep --ref ref.rttm [--cder]] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm [--cder]
 
-Ported families: eend, eend_eda (transformer encoder), tsvad (transformer,
-mamba, mamba_add, mamba2 and mamba2_add backends through `--set
-single_backend_type=… --set multi_backend_type=…`), tsvad_streaming
+Ported families: eend, eend_eda (transformer or conformer encoder, `--set
+encoder_type=…`), tsvad (CAM++, ECAPA, ResNet34 or SimAM-ResNet34 speech
+encoder through `--set speech_encoder_type=…`; transformer, conformer,
+mamba, mamba_add, mamba2 and mamba2_add backends, and lstm for the multi
+backend, through `--set single_backend_type=… --set
+multi_backend_type=…`), tsvad_streaming
 (its own conv front-end, chunk-masked training, chunk-by-chunk decode of
 each window), and spk (speaker-encoder pretraining, exported by
 `export-encoder` in the JAX package's npz format for `extract-embeddings`
 and `train --family tsvad --encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
-package's CLI (`TrainCliConfig`, cli/main.py:33-110). `train` writes torch checkpoints
+package's CLI (`TrainCliConfig`, cli/main.py:33-110; the family defaults to
+eend in both). `--set remat=true` recomputes activations in the backward
+pass where JAX rematerialises. `train` writes torch checkpoints
 and its config (train_config.json) into --exp-dir; `infer --exp-dir`
 rebuilds the model from that config (its family unless --family is given,
 then --set) and restores the best checkpoint by validation loss, else the
 latest. `--params` takes the JAX TSVADModel variables as one flax-layout
 .npz (utils/convert.py); reading the JAX trainer's Orbax directories waits
-for ROADMAP item 6.
+for ROADMAP item 1, [6].
 """
 
 from __future__ import annotations
@@ -65,16 +74,17 @@ TSVAD_FAMILIES = ("tsvad", "tsvad_streaming")  # windows with target-speaker emb
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
     "utils/convert.save_flax_npz). Orbax checkpoint directories of the JAX trainer are not "
-    "read yet (ROADMAP item 6)."
+    "read yet (ROADMAP item 1, [6])."
 )
 
 
 @dataclasses.dataclass
 class TrainCliConfig:
     """The EEND and TS-VAD fields of the JAX CLI's TrainCliConfig, same
-    names and defaults (the family defaults to tsvad here)."""
+    names and defaults. The JAX-only fields belong to families not ported
+    yet (ssnd_*, ts_len, fuse_*, enhance_prob, n_data)."""
 
-    family: str = "tsvad"  # eend | eend_eda | tsvad | tsvad_streaming | spk
+    family: str = "eend"  # eend | eend_eda | tsvad | tsvad_streaming | spk
     # model
     n_speakers: int = 2  # tsvad: > 2 sets max_num_speaker, else 4
     max_attractors: int = 15  # eend_eda: attractors decoded at inference
@@ -83,7 +93,7 @@ class TrainCliConfig:
     n_heads: int = 4
     d_ff: int = 1024
     dropout: float = 0.1
-    encoder_type: str = "transformer"  # eend_eda: transformer (conformer: ROADMAP item 9)
+    encoder_type: str = "transformer"  # eend_eda: transformer | conformer
     bf16: bool = False
     remat: bool = False
     sample_rate: int = 8000
@@ -98,8 +108,8 @@ class TrainCliConfig:
     rs_len: float = 4.0
     segment_shift: float = 2.0
     speech_encoder_type: str = "campplus"
-    single_backend_type: str = "transformer"  # transformer | mamba | mamba_add | mamba2 | mamba2_add
-    multi_backend_type: str = "transformer"
+    single_backend_type: str = "transformer"  # transformer|conformer|mamba|mamba_add|mamba2|mamba2_add
+    multi_backend_type: str = "transformer"  # + lstm
     d_state: int = 64
     expand: int = 2
     # tsvad_streaming (reference ts_vad2_streaming: static_chunk_size 64
@@ -107,13 +117,13 @@ class TrainCliConfig:
     streaming_chunk_size: int = 16
     streaming_left_chunks: int = 4
     encoder_blocks: str = ""  # "12,24,16" = reference CAM++
-    freeze_encoder: bool = False
-    enhancer: str = ""  # not ported: a non-empty value raises (ROADMAP item 10)
     # spk (speaker-embedding pretraining)
     all_n_speakers: int = 0  # classes; 0 = the training corpus's speakers
     spk_dur: float = 2.0  # crop seconds per training utterance
     aam_margin: float = 0.2
     aam_scale: float = 32.0
+    freeze_encoder: bool = False
+    enhancer: str = ""  # not ported: a non-empty value raises (ROADMAP item 10)
     # optimization
     batch_size: int = 16
     num_steps: int = 10000
@@ -191,8 +201,6 @@ def _cli_config(args, base: TrainCliConfig) -> TrainCliConfig:
         cfg = apply_overrides(cfg, args.set)
     if cfg.family not in FAMILIES:
         raise SystemExit(f"family {cfg.family!r} is not ported yet; ported: {', '.join(FAMILIES)}")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported to PyTorch yet (ROADMAP item 6)")
     return cfg
 
 
@@ -205,26 +213,25 @@ def _load_config(path, overrides=()):
 
 
 def _load_encoder(model, path: str) -> None:
-    """Put a pretrained CAM++ into model.speech_encoder: the JAX
-    `export-encoder` npz, or a wespeaker-named torch state dict."""
+    """Put a pretrained speech encoder into model.speech_encoder: the
+    `export-encoder` npz (of the model's encoder type), or a wespeaker-named
+    CAM++ torch state dict."""
     import torch
 
-    from ..utils.convert import campplus_from_flax, load_encoder_npz
+    from ..utils.convert import encoder_from_flax, load_encoder_npz
 
     enc = model.speech_encoder
     if path.endswith(".npz"):
         meta, v = load_encoder_npz(path)
-        if meta.get("encoder", "campplus") != "campplus":
-            raise SystemExit(f"{path}: encoder {meta['encoder']!r} is not CAM++")
-        sd = campplus_from_flax(v["params"], v["batch_stats"])
+        sd = encoder_from_flax(meta.get("encoder", "campplus"), v["params"], v["batch_stats"])
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         sd = sd.get("state_dict", sd.get("model", sd))
     want = enc.state_dict()
     missing = sorted(set(want) - set(sd))
     if missing:
-        raise SystemExit(f"{path} lacks {len(missing)} CAM++ tensors, e.g. {missing[:3]}")
-    enc.load_state_dict({k: sd[k] for k in want})  # the embedding head (dense) is not used by TS-VAD
+        raise SystemExit(f"{path} lacks {len(missing)} tensors of the speech encoder, e.g. {missing[:3]}")
+    enc.load_state_dict({k: sd[k] for k in want})  # the embedding head is not used by TS-VAD
     logging.info("loaded speech encoder from %s", path)
 
 
@@ -243,7 +250,7 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
     if cfg.family == "tsvad":
         from ..models.tsvad import TSVADModel
 
-        return TSVADModel(tsvad_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+        return TSVADModel(tsvad_config(cfg), dtype=dtype, device=device, seed=cfg.seed, remat_encoder=cfg.remat)
     if cfg.family == "tsvad_streaming":
         from ..models.streaming_tsvad import StreamingTSVADModel
 
@@ -257,24 +264,24 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
     if cfg.family == "eend":
         from ..models.eend import EENDModel
 
-        return EENDModel(n_speakers=cfg.n_speakers, **common)
+        return EENDModel(n_speakers=cfg.n_speakers, remat=cfg.remat, **common)
     from ..models.eda import EendEdaModel
 
     return EendEdaModel(n_speakers=cfg.n_speakers, max_attractors=cfg.max_attractors,
-                        encoder_type=cfg.encoder_type, **common)
+                        encoder_type=cfg.encoder_type, conv_norm="group", remat=cfg.remat, **common)
 
 
 def _tsvad_data(args, cfg: TrainCliConfig, model):
     """TS-VAD and streaming TS-VAD: (loss_fn, train iterator factory, valid
-    iterator factory, sizes). The datasets give the model's slot count."""
+    iterator factory, sizes). The datasets give the model's slot count; a
+    comma list of --train-dir trains on the corpora jointly."""
+    from ..data.eend_dataset import ConcatChunkDataset
     from ..data.tsvad_dataset import TSVADChunkDataset, tsvad_batch_iterator
     from ..infer.embeddings import EmbeddingStore
     from ..train.tasks import make_streaming_tsvad_loss, make_tsvad_loss
 
     if not args.emb_store:
         raise SystemExit(f"train --family {cfg.family} needs --emb-store")
-    if "," in args.train_dir:
-        raise SystemExit(f"several --train-dir corpora are not ported yet for {cfg.family}; pass one directory")
     T = int(cfg.rs_len * 25)
     if cfg.family == "tsvad_streaming":
         if args.encoder_ckpt:
@@ -287,8 +294,10 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
     store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
     common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=model.cfg.max_num_speaker,
                   enhancer=cfg.enhancer or None)
-    train_ds = TSVADChunkDataset(args.train_dir, store, segment_shift=cfg.segment_shift, is_train=True,
-                                 seed=cfg.seed, noise_dir=args.noise_dir, rir_dir=args.rir_dir, **common)
+    dss = [TSVADChunkDataset(d, store, segment_shift=cfg.segment_shift, is_train=True, seed=cfg.seed,
+                             noise_dir=args.noise_dir, rir_dir=args.rir_dir, **common)
+           for d in args.train_dir.split(",")]
+    train_ds = dss[0] if len(dss) == 1 else ConcatChunkDataset(dss)
     valid_ds = None
     if args.valid_dir:
         valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=cfg.rs_len, is_train=False, **common)
@@ -477,7 +486,7 @@ def cmd_infer(args) -> int:
     else:
         model = TSVADModel(_load_config(args.config, args.set), dtype="bf16" if args.bf16 else "fp32", device=dev)
         model.load_state_dict(tsvad_from_flax(load_flax_npz(args.params)))
-        cfg, rs_len = TrainCliConfig(), 4.0
+        cfg, rs_len = TrainCliConfig(family="tsvad"), 4.0
         logging.info("loaded %s on %s (%s)", args.params, model.device, model.dtype)
     if cfg.family in TSVAD_FAMILIES:
         probs, fs, spk_names = _tsvad_probs(args, model, args.rs_len or rs_len)
@@ -498,7 +507,12 @@ def cmd_infer(args) -> int:
             write_rttm(out_t, turns_t)
             if args.ref:
                 res = score_der(args.ref, out_t, collar=0.25)
-                print(f"threshold {th:.2f}: {res.summary()}")
+                extra = ""
+                if args.cder:  # the reference RAMC recipes sweep CDER beside DER
+                    from ..score.cder import score_cder
+
+                    extra = f"  CDER {score_cder(args.ref, out_t)['avg']:.3f}"
+                print(f"threshold {th:.2f}: {res.summary()}{extra}")
                 if best is None or res.der < best[1]:
                     best = (th, res.der, out_t)
         if best:
@@ -531,11 +545,51 @@ def cmd_simulate(args) -> int:
     return 0
 
 
+def cmd_simulate_meetings(args) -> int:
+    """LibriCSS-style meetings from a single-speaker corpus (data/simulate.py)."""
+    from ..data import simulate as S
+
+    dynamics = None
+    if args.dynamics:
+        with open(args.dynamics) as f:
+            dynamics = json.load(f)
+    specs = S.meeting_mixture_specs(args.source_dir, dynamics=dynamics, noise_dir=args.noise_dir,
+                                    rir_dir=args.rir_dir, seed=args.seed)
+    out = S.make_meeting_mixtures(specs, os.path.join(args.out, "data"), os.path.join(args.out, "wav"), args.rate)
+    print(out)
+    return 0
+
+
+def cmd_config_dump(args) -> int:
+    """The resolved TrainCliConfig → stdout as yaml, json or bash, printed
+    as the JAX CLI prints it (recipes source the bash form). The yaml form
+    is written out by hand; --config takes JSON."""
+    from ..utils.config import apply_overrides, load_json
+
+    cfg = load_json(TrainCliConfig, args.config) if args.config else TrainCliConfig()
+    if args.set:
+        cfg = apply_overrides(cfg, args.set)
+    d = dataclasses.asdict(cfg)
+    if args.format == "json":
+        print(json.dumps(d, indent=2))
+    elif args.format == "bash":
+        for k, v in d.items():
+            if isinstance(v, bool):
+                v = "true" if v else "false"
+            print(f"{k}={json.dumps(v) if isinstance(v, str) else v}")
+    else:
+        for k, v in d.items():
+            print(f"{k}: {v}")
+    return 0
+
+
 def cmd_export_encoder(args) -> int:
     """A spk `train` run's checkpoint → the encoder npz `extract-embeddings`
     and `train --family tsvad --encoder-ckpt` read (JAX save_encoder format).
     The config is the run's train_config.json, then --config, then --set."""
-    from ..models.spk_embed import save_encoder
+    import torch
+
+    from ..models.spk_embed import build_encoder, save_encoder
     from ..train.checkpoints import CheckpointManager
     from ..utils.config import apply_overrides, load_json
 
@@ -550,9 +604,12 @@ def cmd_export_encoder(args) -> int:
     sd = mgr.restore(step)["model"]
     pre = "speech_encoder."
     enc = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
-    if "xvector.dense.linear.weight" not in enc:
-        raise SystemExit(f"{args.exp_dir} step {step} holds no CAM++ with an embedding head (not a spk run)")
-    save_encoder(args.out, spk_config(cfg, 1), enc)
+    scfg = spk_config(cfg, 1)
+    with torch.device("meta"):
+        want = set(build_encoder(scfg).state_dict())
+    if not want <= set(enc):
+        raise SystemExit(f"{args.exp_dir} step {step} holds no {scfg.encoder} with an embedding head (not a spk run)")
+    save_encoder(args.out, scfg, enc)
     logging.info("exported the encoder of step %d", step)
     print(args.out)
     return 0
@@ -568,9 +625,10 @@ def cmd_prepare_targets(args) -> int:
 
 
 def _embedding_encoder(path, device):
-    """(CAM++ with its embedding head in eval mode on `device`, fbank bins):
-    an export-encoder npz, a wespeaker-named torch state dict, or, with no
-    path, seeded random weights (with a warning, as the JAX CLI does)."""
+    """(a speaker encoder with its embedding head in eval mode on `device`,
+    fbank bins): an export-encoder npz (CAM++, ECAPA or ResNet34), a
+    wespeaker-named CAM++ torch state dict, or, with no path, CAM++ with
+    seeded random weights (with a warning, as the JAX CLI does)."""
     import torch
 
     from ..models.campplus import CAMPPlus
@@ -595,9 +653,10 @@ def _embedding_encoder(path, device):
 
 
 def cmd_extract_embeddings(args) -> int:
-    """Per-speaker target wavs → sliding-window CAM++ embeddings, one (n, 192)
-    matrix per (recording, speaker), as the JAX extract-embeddings. The fbank
-    runs on the device (the K1 kernel on CUDA); CAM++ on its module path."""
+    """Per-speaker target wavs → sliding-window speaker embeddings, one
+    (n, emb_dim) matrix per (recording, speaker), as the JAX
+    extract-embeddings. The fbank runs on the device (the K1 kernel on
+    CUDA); the encoder on its module path."""
     import numpy as np
     import torch
 
@@ -634,6 +693,7 @@ def cmd_extract_embeddings(args) -> int:
 
 def cmd_score(args) -> int:
     from ..score import score_der
+    from ..score.cder import score_cder
 
     uem = None
     if args.uem:
@@ -646,6 +706,8 @@ def cmd_score(args) -> int:
     if args.per_file:
         for rec, r in res.per_file.items():
             print(f"  {rec}: {r.summary()}")
+    if args.cder:
+        print("CDER avg = {:.3f}".format(score_cder(args.ref, args.sys)["avg"]))
     return 0
 
 
@@ -670,17 +732,27 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seed", type=int, default=777)
     s.set_defaults(fn=cmd_simulate)
 
+    sm = sub.add_parser("simulate-meetings", help="LibriCSS-style meeting simulation from a single-speaker corpus")
+    sm.add_argument("--out", required=True)
+    sm.add_argument("--source-dir", required=True, help="Kaldi dir of single-speaker utts")
+    sm.add_argument("--noise-dir")
+    sm.add_argument("--rir-dir")
+    sm.add_argument("--dynamics", help="JSON meeting-dynamics config (default: built-in LibriCSS shapes)")
+    sm.add_argument("--rate", type=int, default=8000)
+    sm.add_argument("--seed", type=int, default=7)
+    sm.set_defaults(fn=cmd_simulate_meetings)
+
     t = sub.add_parser("train", help="train a model with periodic validation and checkpoints")
-    t.add_argument("--family", choices=FAMILIES, help="model family (default: the --config's, else tsvad)")
+    t.add_argument("--family", choices=FAMILIES, help="model family (default: the --config's, else eend)")
     t.add_argument("--config", help="TrainCliConfig as JSON (field → value)")
     t.add_argument("--set", action="append", default=[], help="TrainCliConfig override key=value")
     t.add_argument("--train-dir", required=True,
-                   help="Kaldi data dir (EEND families: a comma list trains jointly; spk: utt2spk required)")
+                   help="Kaldi data dir (a comma list trains jointly, except for spk, which needs utt2spk)")
     t.add_argument("--valid-dir")
     t.add_argument("--exp-dir", required=True)
     t.add_argument("--emb-store", help="tsvad, tsvad_streaming: target-speaker embedding npz (comma list merges)")
-    t.add_argument("--encoder-ckpt", help="tsvad: pretrained CAM++, an export-encoder .npz or a wespeaker torch "
-                                          "state dict")
+    t.add_argument("--encoder-ckpt", help="tsvad: pretrained speech encoder, an export-encoder .npz or a "
+                                          "wespeaker CAM++ torch state dict")
     t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation")
     t.add_argument("--rir-dir", help="Kaldi dir of RIR wavs for reverberation")
     t.add_argument("--max-to-keep", type=int, default=5)
@@ -690,7 +762,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="run chunked (EEND) or overlap-voted (TS-VAD) inference → RTTM")
-    i.add_argument("--family", choices=INFER_FAMILIES, help="model family (default: the --exp-dir run's, else tsvad)")
+    i.add_argument("--family", choices=INFER_FAMILIES,
+                   help="model family (default: the --exp-dir run's, else tsvad with --params)")
     i.add_argument("--config", help="with --params: TSVADConfig as JSON; default: the full-size TSVADConfig()")
     i.add_argument("--set", action="append", default=[],
                    help="key=value override of the TSVADConfig (--params) or of the run's TrainCliConfig (--exp-dir)")
@@ -709,6 +782,7 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--infer-shift", type=float, default=1.0)
     i.add_argument("--threshold-sweep", action="store_true", help="write RTTMs for thresholds 0.2..0.98")
     i.add_argument("--ref", help="reference RTTM for sweep scoring")
+    i.add_argument("--cder", action="store_true", help="also report CDER in the threshold sweep")
     i.add_argument("--bf16", action="store_true", help="compute in bfloat16 (weights stay fp32)")
     i.add_argument("--device", help="torch device (default: cuda; pass 'cpu' to run on the CPU)")
     i.set_defaults(fn=cmd_infer)
@@ -721,6 +795,7 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("-u", "--uem", help="NIST UEM file restricting the scored regions (md-eval -u)")
     sc.add_argument("--regions", choices=["all", "single", "overlap"], default="all")
     sc.add_argument("--per-file", action="store_true")
+    sc.add_argument("--cder", action="store_true")
     sc.set_defaults(fn=cmd_score)
 
     pt = sub.add_parser("prepare-targets", help="system/oracle RTTM → overlap-free per-speaker target audio for TS-VAD")
@@ -730,6 +805,12 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--label-rate", type=int, default=25)
     pt.add_argument("--min-target-s", type=float, default=0.0, help="drop speakers with less clean speech than this")
     pt.set_defaults(fn=cmd_prepare_targets)
+
+    cd = sub.add_parser("config-dump", help="print the resolved train config (yaml/json/bash)")
+    cd.add_argument("--config", help="TrainCliConfig as JSON (field → value)")
+    cd.add_argument("--set", action="append", default=[])
+    cd.add_argument("--format", choices=["yaml", "json", "bash"], default="yaml")
+    cd.set_defaults(fn=cmd_config_dump)
 
     ee = sub.add_parser("export-encoder", help="export a trained spk encoder for extract-embeddings")
     ee.add_argument("--exp-dir", required=True)
@@ -742,7 +823,8 @@ def build_parser() -> argparse.ArgumentParser:
     e = sub.add_parser("extract-embeddings", help="dump target-speaker embeddings to npz")
     e.add_argument("--data-dir", required=True, help="Kaldi dir of per-speaker target wavs")
     e.add_argument("--out", required=True)
-    e.add_argument("--encoder-ckpt", help="export-encoder .npz, or a wespeaker CAM++ torch state dict")
+    e.add_argument("--encoder-ckpt", help="export-encoder .npz (CAM++, ECAPA, ResNet34), or a wespeaker CAM++ "
+                                          "torch state dict")
     e.add_argument("--rate", type=int, default=16000)
     e.add_argument("--window", type=float, default=6.0)
     e.add_argument("--hop", type=float, default=1.0)

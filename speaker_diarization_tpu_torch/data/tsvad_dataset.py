@@ -219,8 +219,11 @@ def tsvad_batch_iterator(
     epoch: int = 0,
 ) -> Iterator[dict]:
     """Batches of stacked numpy items {audio, target_embs, labels} in the
-    JAX package's order (a numpy shuffle seeded with seed + epoch)."""
-    dataset.set_epoch(epoch)
+    JAX package's order (a numpy shuffle seeded with seed + epoch). A
+    ConcatChunkDataset of several corpora has no set_epoch: its members keep
+    epoch 0's augmentation draws, as in the JAX package."""
+    if hasattr(dataset, "set_epoch"):
+        dataset.set_epoch(epoch)
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed + epoch).shuffle(order)

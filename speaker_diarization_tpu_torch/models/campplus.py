@@ -25,7 +25,7 @@ from typing import Literal, Sequence
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm, Conv1d, Conv2d
+from .layers import BatchNorm, Conv1d, Conv2d, remat as _remat
 
 
 def get_nonlinear(channels: int, relu: bool = True, affine: bool = True) -> nn.Sequential:
@@ -94,17 +94,22 @@ class CAMDenseTDNNLayer(nn.Module):
 
 
 class CAMDenseTDNNBlock(nn.ModuleList):
-    def __init__(self, num_layers, in_channels, out_channels, bn_channels, kernel_size, dilation=1):
+    """`remat`: each layer's activations are recomputed in the backward pass
+    (the JAX block's `nn.remat` of each CAMDenseTDNNLayer)."""
+
+    def __init__(self, num_layers, in_channels, out_channels, bn_channels, kernel_size, dilation=1, remat=False):
         super().__init__()
         for i in range(num_layers):
             self.add_module(
                 f"tdnnd{i + 1}",
                 CAMDenseTDNNLayer(in_channels + i * out_channels, out_channels, bn_channels, kernel_size, dilation),
             )
+        self.remat = remat
 
     def forward(self, x):
         for layer in self:
-            x = torch.cat([x, layer(x)], dim=1)
+            out = _remat(layer, x) if self.remat and torch.is_grad_enabled() else layer(x)
+            x = torch.cat([x, out], dim=1)
         return x
 
 
@@ -186,7 +191,9 @@ class CAMPPlus(nn.Module):
     mode 'frames': (B, ceil(T/2), 512) 50 Hz features (TS-VAD speech encoder).
     mode 'embedding': (B, embedding_size) x-vector; needs with_dense=True.
     The TS-VAD speech encoder is built with with_dense=False, matching the
-    JAX model, whose frames-only encoder has no dense layer.
+    JAX model, whose frames-only encoder has no dense layer. `remat`
+    recomputes each dense layer in the backward pass (TS-VAD's
+    `remat_encoder`).
     """
 
     def __init__(
@@ -199,6 +206,7 @@ class CAMPPlus(nn.Module):
         block_layers: Sequence[int] = (12, 24, 16),
         block_dilations: Sequence[int] = (1, 2, 2),
         with_dense: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         self.feat_dim = feat_dim
@@ -213,7 +221,7 @@ class CAMPPlus(nn.Module):
         self.xvector = nn.Sequential(OrderedDict(tdnn=TDNNLayer(channels, init_channels, 5, stride=2, dilation=1)))
         channels = init_channels
         for i, (num_layers, dil) in enumerate(zip(self.block_layers, self.block_dilations)):
-            block = CAMDenseTDNNBlock(num_layers, channels, growth_rate, bn_size * growth_rate, 3, dil)
+            block = CAMDenseTDNNBlock(num_layers, channels, growth_rate, bn_size * growth_rate, 3, dil, remat)
             self.xvector.add_module(f"block{i + 1}", block)
             channels += num_layers * growth_rate
             self.xvector.add_module(f"transit{i + 1}", TransitLayer(channels, channels // 2))

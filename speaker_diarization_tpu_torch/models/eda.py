@@ -18,7 +18,14 @@ The recurrences are flax `OptimizedLSTMCell`s under `nn.RNN`, written out:
   the carry, as JAX promotes them, so the attractors come out fp32 in a
   bf16 model and the product emb · attractorᵀ runs in fp32;
 - `seq_lengths` freezes each row's carry at its last valid frame (a row of
-  length 0 keeps the carry after all T steps, as flax's index −1 does).
+  length 0 keeps the carry after all T steps, as flax's index −1 does);
+- `reverse` runs the sequence last frame first and gives the outputs back
+  in the input's order (flax `nn.RNN(reverse=True, keep_order=True)`), the
+  backward half of TS-VAD's BiLSTM backend.
+
+The encoder is the transformer (`TransformerEncoder`) or, with
+`encoder_type="conformer"`, models/conformer.ConformerEncoder with its
+conv-module norm `conv_norm` ("group" is what the CLI builds).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn as nn
 
 from ..utils.device import resolve_dtype
 from .eend import FrontendConfig, frontend_features, materialize_
+from .conformer import ConformerEncoder
 from .layers import Linear
 from .transformer import TransformerEncoder
 
@@ -37,17 +45,26 @@ from .transformer import TransformerEncoder
 class LSTM(nn.Module):
     """flax OptimizedLSTMCell unrolled over time by nn.RNN."""
 
-    def __init__(self, d_in: int, d: int):
+    def __init__(self, d_in: int, d: int, reverse: bool = False):
         super().__init__()
         self.input = Linear(d_in, 4 * d, bias=False)  # ii | if | ig | io
         self.hidden = Linear(d, 4 * d)  # hi | hf | hg | ho, with bias
         self.d = d
+        self.reverse = reverse
 
     def forward(
         self, x: torch.Tensor, carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         seq_lengths: Optional[torch.Tensor] = None,
     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
         """x (B, T, d_in) in the compute dtype → (final carry (c, h), outputs (B, T, d)), fp32."""
+        if self.reverse:
+            if seq_lengths is not None:
+                raise ValueError("a reversed LSTM takes no seq_lengths")
+            carry, out = self._run(x.flip(1), carry, None)
+            return carry, out.flip(1)
+        return self._run(x, carry, seq_lengths)
+
+    def _run(self, x, carry, seq_lengths):
         B, T, _ = x.shape
         D = self.d
         xi = self.input(x)  # (B, T, 4D)
@@ -103,9 +120,10 @@ class EncoderDecoderAttractor(nn.Module):
 
 
 class EendEdaModel(nn.Module):
-    """Transformer encoder + EDA. Trains at capacity n_speakers; `infer`
-    decodes max_attractors and leaves the choice to a threshold on the
-    existence probability."""
+    """Transformer or conformer encoder + EDA. Trains at capacity
+    n_speakers; `infer` decodes max_attractors and leaves the choice to a
+    threshold on the existence probability. `remat` recomputes each
+    transformer layer in the backward pass (the JAX conformer has none)."""
 
     def __init__(
         self,
@@ -117,20 +135,25 @@ class EendEdaModel(nn.Module):
         d_ff: int = 2048,
         dropout: float = 0.1,
         encoder_type: str = "transformer",
+        conv_norm: str = "batch",
         frontend: FrontendConfig = FrontendConfig(),
+        remat: bool = False,
         dtype: Union[str, torch.dtype] = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
         seed: int = 0,
     ):
         super().__init__()
-        if encoder_type == "conformer":
-            raise NotImplementedError("encoder_type='conformer' is not ported to PyTorch yet (ROADMAP item 9)")
-        if encoder_type != "transformer":
+        if encoder_type not in ("transformer", "conformer"):
             raise ValueError(f"encoder_type must be transformer|conformer, got {encoder_type!r}")
         self.n_speakers, self.max_attractors, self.frontend = n_speakers, max_attractors, frontend
         self.dtype = resolve_dtype(dtype)
         with torch.device("meta"):
-            self.encoder = TransformerEncoder(frontend.input_dim, d_model, n_layers, n_heads, d_ff, dropout)
+            if encoder_type == "conformer":
+                self.encoder = ConformerEncoder(frontend.input_dim, d_model, n_layers, n_heads, d_ff,
+                                                dropout=dropout, conv_norm=conv_norm)
+            else:
+                self.encoder = TransformerEncoder(frontend.input_dim, d_model, n_layers, n_heads, d_ff, dropout,
+                                                  remat=remat)
             self.eda = EncoderDecoderAttractor(d_model)
         materialize_(self, device, seed)
 

@@ -10,6 +10,7 @@ TransformerModel in eend_eda/models.py:26 + PIT-BCE in eend/loss.py:20):
 Parameters are fp32; `dtype` is the compute dtype (the features are cast
 to it after the front-end, the logits back to fp32). `model.train()` is the
 JAX `deterministic=False`: dropout from the `generator` passed to forward.
+`remat` recomputes each encoder layer in the backward pass (JAX `remat`).
 """
 
 from __future__ import annotations
@@ -83,12 +84,14 @@ class EENDModel(nn.Module):
         dtype: Union[str, torch.dtype] = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
         seed: int = 0,
+        remat: bool = False,
     ):
         super().__init__()
         self.n_speakers, self.frontend = n_speakers, frontend
         self.dtype = resolve_dtype(dtype)
         with torch.device("meta"):
-            self.encoder = TransformerEncoder(frontend.input_dim, d_model, n_layers, n_heads, d_ff, dropout)
+            self.encoder = TransformerEncoder(frontend.input_dim, d_model, n_layers, n_heads, d_ff, dropout,
+                                              remat=remat)
             self.head = Linear(d_model, n_speakers)
         materialize_(self, device, seed)
 

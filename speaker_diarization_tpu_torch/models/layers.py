@@ -8,12 +8,14 @@ fp32 and casts back, as flax's BatchNorm does for a bf16 input.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
+from torch.utils.checkpoint import checkpoint
 
 
 def _cast(t, dtype):
@@ -77,6 +79,44 @@ def dropout(x: torch.Tensor, p: float, training: bool, generator: Optional[torch
         return x
     keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - p, generator=generator)
     return x * (keep / (1.0 - p)).to(x.dtype)
+
+
+def remat(module: nn.Module, *args, generator: Optional[torch.Generator] = None):
+    """module(*args) with its activations recomputed in the backward pass
+    instead of kept (flax `nn.remat`), through torch.utils.checkpoint.
+
+    The recomputation must repeat the forward exactly. checkpoint restores
+    only the global RNG, so the dropout `generator` is wound back to its
+    state at the forward for the recomputation and then put back where the
+    backward found it; a train-mode BatchNorm would move its running
+    statistics a second time, so the module's buffers are restored after it.
+    """
+
+    at_forward = {}
+
+    @contextlib.contextmanager
+    def forward_ctx():
+        if generator is not None:
+            at_forward["rng"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute_ctx():
+        saved = [b.clone() for b in module.buffers()]
+        now = None
+        if generator is not None:
+            now = generator.get_state()
+            generator.set_state(at_forward["rng"])
+        try:
+            yield
+        finally:
+            if now is not None:
+                generator.set_state(now)
+            with torch.no_grad():
+                for b, s in zip(module.buffers(), saved):
+                    b.copy_(s)
+
+    return checkpoint(module, *args, use_reentrant=False, context_fn=lambda: (forward_ctx(), recompute_ctx()))
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:

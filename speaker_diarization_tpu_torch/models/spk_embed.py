@@ -7,9 +7,9 @@ Trained encoders are exported (CLI `export-encoder`) in the JAX package's
 npz format and read by `extract-embeddings` and `train --family tsvad
 --encoder-ckpt`, in either package.
 
-The encoder is CAM++ with its dense head, on its module path (BatchNorm on
-batch statistics in train mode, running statistics in eval), fed fbank in
-the compute dtype. The ECAPA and ResNet34 encoders wait for ROADMAP item 12.
+The encoder is CAM++ with its dense head, ECAPA-TDNN (`ecapa_channels`
+wide) or ResNet34, on its module path (BatchNorm on batch statistics in
+train mode, running statistics in eval), fed fbank in the compute dtype.
 """
 
 from __future__ import annotations
@@ -25,16 +25,19 @@ import torch.nn as nn
 
 from ..ops import features as F
 from ..ops.losses import l2_normalize
-from ..utils.convert import _flatten, campplus_from_flax, campplus_to_flax, load_encoder_npz
+from ..utils.convert import _flatten, encoder_from_flax, encoder_to_flax, load_encoder_npz
 from ..utils.device import resolve_device, resolve_dtype
 from .campplus import CAMPPlus
 from .layers import init_weights_
+from .speaker_encoders import ECAPA_TDNN, ResNet34
+
+ENCODERS = ("campplus", "ecapa", "resnet34")
 
 
 @dataclass(frozen=True)
 class SpkEmbedConfig:
     n_classes: int = 100
-    encoder: str = "campplus"  # campplus (ecapa | resnet34: ROADMAP item 12)
+    encoder: str = "campplus"  # campplus | ecapa | resnet34
     feat_dim: int = 80
     emb_dim: int = 192
     margin: float = 0.2  # AAM margin m
@@ -43,16 +46,19 @@ class SpkEmbedConfig:
     ecapa_channels: int = 512
 
 
-def _check_encoder(name: str) -> None:
-    if name != "campplus":
-        raise NotImplementedError(f"speaker encoder {name!r} is not ported to PyTorch yet (ROADMAP item 12)")
-
-
-def _campplus(cfg: SpkEmbedConfig) -> CAMPPlus:
-    return CAMPPlus(
-        feat_dim=cfg.feat_dim, embedding_size=cfg.emb_dim, block_layers=cfg.encoder_blocks,
-        block_dilations=(1, 2, 2)[: len(cfg.encoder_blocks)], with_dense=True,
-    )
+def build_encoder(cfg: SpkEmbedConfig) -> nn.Module:
+    """The config's speaker encoder with its embedding head (unmaterialised
+    where the caller builds on the meta device)."""
+    if cfg.encoder == "campplus":
+        return CAMPPlus(
+            feat_dim=cfg.feat_dim, embedding_size=cfg.emb_dim, block_layers=cfg.encoder_blocks,
+            block_dilations=(1, 2, 2)[: len(cfg.encoder_blocks)], with_dense=True,
+        )
+    if cfg.encoder == "ecapa":
+        return ECAPA_TDNN(channels=cfg.ecapa_channels, feat_dim=cfg.feat_dim, embed_dim=cfg.emb_dim)
+    if cfg.encoder == "resnet34":
+        return ResNet34(feat_dim=cfg.feat_dim, embed_dim=cfg.emb_dim)
+    raise ValueError(f"unknown encoder {cfg.encoder}")
 
 
 class SpeakerClassifier(nn.Module):
@@ -71,12 +77,11 @@ class SpeakerClassifier(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        _check_encoder(cfg.encoder)
         self.cfg = cfg
         self.dtype = resolve_dtype(dtype)
         dev = resolve_device(device)
         with torch.device("meta"):
-            self.speech_encoder = _campplus(cfg)
+            self.speech_encoder = build_encoder(cfg)
             self.aam_weight = nn.Parameter(torch.empty(cfg.n_classes, cfg.emb_dim))
         self.to_empty(device=dev)
         gen = torch.Generator().manual_seed(seed)
@@ -107,10 +112,10 @@ class SpeakerClassifier(nn.Module):
         return cos * c.scale
 
 
-def embed_audio(encoder: CAMPPlus, audio: torch.Tensor, sample_rate: int, n_mels: int = 80) -> torch.Tensor:
+def embed_audio(encoder: nn.Module, audio: torch.Tensor, sample_rate: int, n_mels: int = 80) -> torch.Tensor:
     """audio (B, N) → the embeddings `extract-embeddings` stores (B, emb_dim):
-    mean-normalised kaldi fbank (the K1 kernel on CUDA), CAM++ in embedding
-    mode (its module path, as the JAX CLI runs it)."""
+    mean-normalised kaldi fbank (the K1 kernel on CUDA), the encoder in
+    embedding mode (its module path, as the JAX CLI runs it)."""
     fbank = F.kaldi_fbank_auto(audio, sample_rate=sample_rate, num_mel_bins=n_mels, mean_norm=True)
     return encoder(fbank, mode="embedding")
 
@@ -123,24 +128,25 @@ def embed_audio(encoder: CAMPPlus, audio: torch.Tensor, sample_rate: int, n_mels
 
 
 def save_encoder(path: str, cfg: SpkEmbedConfig, encoder_state_dict) -> None:
-    """Write a CAM++ state dict (with its dense head) and the config as npz."""
-    _check_encoder(cfg.encoder)
-    flat = {"/".join(p): v for p, v in _flatten(campplus_to_flax(encoder_state_dict))}
+    """Write an encoder's state dict (with its embedding head) and the config as npz."""
+    if cfg.encoder not in ENCODERS:
+        raise ValueError(f"unknown encoder {cfg.encoder}")
+    variables = encoder_to_flax(cfg.encoder, encoder_state_dict)
+    flat = {"/".join(p): v for p, v in _flatten({k: t for k, t in variables.items() if t})}
     meta = dict(encoder=cfg.encoder, feat_dim=cfg.feat_dim, emb_dim=cfg.emb_dim,
                 encoder_blocks=list(cfg.encoder_blocks), ecapa_channels=cfg.ecapa_channels)
     np.savez(path, __cfg__=json.dumps(meta), **flat)
 
 
-def load_encoder(path: str, device: Optional[Union[str, torch.device]] = None) -> Tuple[CAMPPlus, SpkEmbedConfig]:
-    """An export-encoder npz (from either package) → (CAM++ in eval mode on
-    `device`, its config); the encoder's forward(fbank, mode="embedding")
-    gives the embedding."""
+def load_encoder(path: str, device: Optional[Union[str, torch.device]] = None) -> Tuple[nn.Module, SpkEmbedConfig]:
+    """An export-encoder npz (from either package) → (the encoder in eval
+    mode on `device`, its config); the encoder's forward(fbank,
+    mode="embedding") gives the embedding."""
     meta, v = load_encoder_npz(path)
     cfg = SpkEmbedConfig(
         n_classes=1, encoder=meta["encoder"], feat_dim=meta["feat_dim"], emb_dim=meta["emb_dim"],
         encoder_blocks=tuple(meta["encoder_blocks"]), ecapa_channels=meta.get("ecapa_channels", 512),
     )
-    _check_encoder(cfg.encoder)
-    enc = _campplus(cfg)
-    enc.load_state_dict(campplus_from_flax(v["params"], v["batch_stats"]))
+    enc = build_encoder(cfg)
+    enc.load_state_dict(encoder_from_flax(cfg.encoder, v["params"], v["batch_stats"]))
     return enc.to(resolve_device(device)).eval(), cfg

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
 
-from .layers import Linear, dropout as drop
+from .layers import Linear, dropout as drop, remat as _remat
 
 LN_EPS = 1e-6
 
@@ -127,10 +127,12 @@ def make_chunk_mask(T: int, chunk_size: int, num_left_chunks: int = -1, device=N
 class TransformerEncoder(nn.Module):
     """Input projection + LayerNorm (+ sinusoidal positions when `has_pos`)
     + N post-norm self-attention layers; padded frames are masked out of
-    attention and zeroed at the output. The EEND family's trunk."""
+    attention and zeroed at the output. The EEND family's trunk. `remat`
+    recomputes each layer's activations in the backward pass (JAX
+    `nn.remat` of each layer)."""
 
     def __init__(self, in_dim: int, d_model: int = 256, n_layers: int = 4, n_heads: int = 4, d_ff: int = 2048,
-                 dropout: float = 0.0, has_pos: bool = False, max_len: int = 8192):
+                 dropout: float = 0.0, has_pos: bool = False, max_len: int = 8192, remat: bool = False):
         super().__init__()
         self.input_proj = Linear(in_dim, d_model)
         self.input_norm = LayerNorm(d_model)
@@ -139,6 +141,7 @@ class TransformerEncoder(nn.Module):
         self.n_layers = n_layers
         self.has_pos = has_pos
         self.max_len = max_len
+        self.remat = remat
 
     def forward(self, x, frame_mask=None, generator=None):
         """(B, T, in_dim) → (B, T, d_model); frame_mask (B, T) 1 = valid."""
@@ -148,7 +151,11 @@ class TransformerEncoder(nn.Module):
             pe = torch.from_numpy(sinusoidal_position_encoding(self.max_len, h.shape[-1])[: h.shape[1]])
             h = h + pe.to(h.device, h.dtype)[None]
         for i in range(self.n_layers):
-            h = getattr(self, f"layer_{i}")(h, generator, mask)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                h = _remat(layer, h, generator, mask, generator=generator)
+            else:
+                h = layer(h, generator, mask)
         if frame_mask is not None:
             h = h * frame_mask[..., None].to(h.dtype)
         return h

@@ -1,8 +1,10 @@
 """TS-VAD: target-speaker voice activity detection — the DER flagship.
 
 Counterpart of speaker_diarization_tpu/models/tsvad.py (reference
-ts_vad2/model.py:179-970), with the CAM++ speech encoder and transformer,
-BiMamba (S6) or BiMamba-2 (SSD) backends:
+ts_vad2/model.py:179-970), with the CAM++, ECAPA-TDNN (1024 channels),
+ResNet34 and SimAM-ResNet34 speech encoders and transformer, conformer,
+BiMamba (S6), BiMamba-2 (SSD) or (multi backend) BiLSTM backends. The
+CAM++ flagship:
 
   audio (B, N) → kaldi fbank 80d @100 Hz (mean-norm; K1 kernel on CUDA)
   → CAM++ frame encoder (512d @50 Hz; fused path, K2 kernel per block)
@@ -18,8 +20,11 @@ JAX model. Parameters are fp32; the compute dtype is float32 or bfloat16.
 `model.train()` is the JAX `train=True`: BatchNorm on batch statistics
 (updating the running ones), dropout from the `generator` passed to
 `forward`, and CAM++ on its plain module path (the fused K2 path serves
-eval mode only, as in JAX). Other speech encoders and backends are not
-ported yet and raise.
+eval mode only, as in JAX). ECAPA frames come at 100 Hz and a stride-4
+conv takes them to 25 Hz; ResNet frames come at 12.5 Hz and a ×2
+transposed conv (flax's "SAME" padding, `ConvTransposeSame`) takes them up.
+`remat_encoder` recomputes each CAM++ dense layer in the backward pass.
+The other speech encoders (WavLM, Whisper, ERes2Net, ...) raise.
 """
 
 from __future__ import annotations
@@ -33,9 +38,14 @@ import torch.nn as nn
 from ..ops import features as F
 from ..utils.device import resolve_device, resolve_dtype
 from .campplus import CAMPPlus
+from .conformer import ConformerEncoder
+from .eda import LSTM
 from .layers import BatchNorm, Conv1d, Linear, dropout, init_weights_
 from .mamba import BiMamba2Block, BiMambaBlock
+from .speaker_encoders import ECAPA_TDNN, ResNet34, SimAMResNet34
 from .transformer import TransformerEncoderLayer, sinusoidal_position_encoding
+
+BACKENDS = ("transformer", "conformer", "lstm", "mamba", "mamba_add", "mamba2", "mamba2_add")
 
 
 @dataclass(frozen=True)
@@ -99,6 +109,74 @@ class BackendTransformer(nn.Module):
         return x
 
 
+class BackendConformer(nn.Module):
+    """Conformer backend (reference 'conformer_ots_vad'): depthwise kernel
+    31, BatchNorm in the conv module, positions added, no padding mask."""
+
+    def __init__(self, d_model: int, n_layers: int, n_heads: int, d_ff: int, dropout: float = 0.0,
+                 conv_kernel: int = 31):
+        super().__init__()
+        self.conformer = ConformerEncoder(d_model, d_model, n_layers, n_heads, d_ff, conv_kernel, dropout)
+
+    def forward(self, x, generator=None):
+        return self.conformer(x, None, generator)
+
+
+class BackendBiLSTM(nn.Module):
+    """BiLSTM backend projected back to d_model (reference 'lstm_ots_vad'):
+    a forward and a reversed flax OptimizedLSTMCell RNN, concatenated."""
+
+    def __init__(self, d_model: int, hidden: int = 256):
+        super().__init__()
+        self.lstm_fwd = LSTM(d_model, hidden)
+        self.lstm_bwd = LSTM(d_model, hidden, reverse=True)
+        self.proj = Linear(2 * hidden, d_model)
+
+    def forward(self, x, generator=None):
+        _, fwd = self.lstm_fwd(x)
+        _, bwd = self.lstm_bwd(x)
+        return self.proj(torch.cat([fwd, bwd], dim=-1).to(x.dtype))
+
+
+class ConvTransposeSame(nn.ConvTranspose1d):
+    """flax `ConvTranspose(padding="SAME")` on (B, Cin, T) → (B, Cout, s·T).
+
+    lax.conv_transpose (transpose_kernel=False) correlates the input,
+    dilated by the stride, with the kernel as it is, padded by
+    pad_a = ceil((k + s − 2) / 2) in front (k − 1 when s > k − 1). torch's
+    transposed convolution flips its kernel, so the weight here is the flax
+    kernel flipped in time (utils/convert.py flips it), with padding
+    k − 1 − pad_a; torch's output then runs longer by 2·pad_a − k − s + 2
+    frames at the end, which are cut.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int):
+        pad_len = kernel + stride - 2
+        pad_a = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+        if 2 * pad_a - kernel - stride + 2 < 0:
+            raise ValueError(f"no torch padding gives flax SAME for kernel {kernel}, stride {stride}")
+        super().__init__(in_channels, out_channels, kernel, stride=stride, padding=kernel - 1 - pad_a)
+
+    def forward(self, x):
+        y = nn.functional.conv_transpose1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                                           self.padding)
+        return y[..., : x.shape[-1] * self.stride[0]]
+
+
+class SpeechFeatUpsample(nn.Module):
+    """(B, T, Cin) → (B, 2T, Cout): ConvTranspose k5 ×2 ("SAME") + BN + ReLU,
+    12.5 Hz → 25 Hz for ResNet-family encoders (reference
+    SpeechFeatUpsample2, ts_vad2/model.py:114-134)."""
+
+    def __init__(self, in_channels: int, out_channels: int, upsample: int = 2):
+        super().__init__()
+        self.up = ConvTransposeSame(in_channels, out_channels, 5, upsample)
+        self.bn = BatchNorm(out_channels)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.up(x.transpose(1, 2)))).transpose(1, 2)
+
+
 class ConvBnRelu(nn.Module):
     """(B, T, Cin) → (B, T', Cout): Conv1d (with bias) + BN + ReLU."""
 
@@ -125,24 +203,39 @@ class TSVADModel(nn.Module):
         dtype: Union[str, torch.dtype] = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
         seed: int = 0,
+        remat_encoder: bool = False,
     ):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = resolve_dtype(dtype)
         dev = resolve_device(device)
-        if c.speech_encoder_type != "campplus":
-            _not_ported(f"speech_encoder_type={c.speech_encoder_type!r}", "12 (encoder zoo)")
+        enc_type = c.speech_encoder_type
+        if enc_type not in ("campplus", "ecapa", "resnet34", "simam_resnet34"):
+            _not_ported(f"speech_encoder_type={enc_type!r}", "5, [12]")
         for kind in (c.single_backend_type, c.multi_backend_type):
-            if kind not in ("transformer", "mamba", "mamba_add", "mamba2", "mamba2_add"):
-                _not_ported(f"backend {kind!r}", "9-10")
+            if kind not in BACKENDS:
+                raise ValueError(f"unknown backend type: {kind}")
         with torch.device("meta"):
-            self.speech_encoder = CAMPPlus(
-                feat_dim=c.feat_dim,
-                block_layers=c.encoder_block_layers,
-                block_dilations=(1, 2, 2)[: len(c.encoder_block_layers)],
-                with_dense=False,
-            )
-            self.speech_down = ConvBnRelu(self.speech_encoder.out_channels, c.speaker_embed_dim, kernel=5, stride=2)
+            if enc_type == "campplus":
+                self.speech_encoder = CAMPPlus(
+                    feat_dim=c.feat_dim,
+                    block_layers=c.encoder_block_layers,
+                    block_dilations=(1, 2, 2)[: len(c.encoder_block_layers)],
+                    with_dense=False,
+                    remat=remat_encoder,
+                )
+            elif enc_type == "ecapa":  # reference ecapa_channel_1024_wespeaker (model.py:632-655)
+                self.speech_encoder = ECAPA_TDNN(channels=1024, feat_dim=c.feat_dim, with_head=False)
+            else:  # reference resnet34 / simam_resnet34 wespeaker wiring (model.py:584-630)
+                trunk = ResNet34 if enc_type == "resnet34" else SimAMResNet34
+                self.speech_encoder = trunk(feat_dim=c.feat_dim, with_head=False)
+            enc_c, emb_c = self.speech_encoder.out_channels, c.speaker_embed_dim
+            if enc_type == "campplus":  # 50 Hz → 25 Hz
+                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=2)
+            elif enc_type == "ecapa":  # 100 Hz → 25 Hz
+                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=4)
+            else:  # 12.5 Hz → 25 Hz
+                self.speech_down = SpeechFeatUpsample(enc_c, emb_c, upsample=2)
             if c.speaker_embed_dim * 2 != c.transformer_embed_dim:
                 self.proj_layer = Linear(2 * c.speaker_embed_dim, c.transformer_embed_dim)
             else:
@@ -166,6 +259,13 @@ class TSVADModel(nn.Module):
                 c.transformer_embed_dim, c.num_transformer_layer, c.num_attention_head,
                 c.transformer_ffn_embed_dim, c.dropout,
             )
+        if kind == "conformer":  # reference 'conformer_ots_vad' (model.py:258-267)
+            return BackendConformer(
+                c.transformer_embed_dim, c.num_transformer_layer, c.num_attention_head,
+                c.transformer_ffn_embed_dim, c.dropout,
+            )
+        if kind == "lstm":  # reference 'lstm_ots_vad' multi backend (model.py:357-364)
+            return BackendBiLSTM(c.transformer_embed_dim)
         block = BiMamba2Block if kind.startswith("mamba2") else BiMambaBlock
         return block(
             c.transformer_embed_dim, c.num_transformer_layer, c.d_state, expand=c.expand,
@@ -179,8 +279,9 @@ class TSVADModel(nn.Module):
     def encode_speech(self, audio_or_fbank: torch.Tensor, n_label_frames: int, freeze_encoder: bool = False) -> torch.Tensor:
         """audio (B, N) or fbank (B, T100, feat) → mix embeddings (B, T25, D).
 
-        freeze_encoder (train mode): CAM++ runs with its running statistics
-        and passes no gradient, the JAX `stop_gradient` of tsvad.py:393.
+        freeze_encoder (train mode): the encoder runs with its running
+        statistics and passes no gradient, the JAX `stop_gradient` of
+        tsvad.py:393.
         """
         c = self.cfg
         if audio_or_fbank.dim() == 2:
@@ -189,7 +290,7 @@ class TSVADModel(nn.Module):
             fbank = audio_or_fbank
         fbank = fbank.to(self.dtype)
         enc = self.speech_encoder
-        if c.fused_encoder_inference and not self.training:
+        if c.speech_encoder_type == "campplus" and c.fused_encoder_inference and not self.training:
             from ..kernels.cam_block_fused import campplus_frames_fused
 
             x = campplus_frames_fused(enc, fbank)
@@ -201,7 +302,7 @@ class TSVADModel(nn.Module):
             finally:
                 enc.train()
         else:
-            x = enc(fbank, mode="frames")  # (B, T50, 512)
+            x = enc(fbank, mode="frames")  # (B, T50, 512) for CAM++
         x = self.speech_down(x)  # (B, T25, 192)
         # align to label length (reference model.py:853-857 allows ±2)
         T = x.shape[1]

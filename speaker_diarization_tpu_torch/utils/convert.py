@@ -32,6 +32,22 @@ layers whose q/k/v/out are DenseGeneral kernels as in the MHA rows above).
 
 `load_encoder_npz` reads the JAX `export-encoder` npz (models/spk_embed.py
 `save_encoder`: "/"-joined variable paths and a JSON `__cfg__`).
+
+Modules ported with the flax module names (models/conformer.py,
+models/speaker_encoders.py) map by name through `named_from_flax` /
+`named_to_flax`: the path is the state-dict name, with the layout rules
+above and two more:
+
+  flax ConvTranspose kernel (K, Cin, Cout) → ConvTranspose1d weight
+      (Cin, Cout, K) flipped in time (models/tsvad.ConvTransposeSame)
+  GroupNorm scale/bias                   → weight/bias
+
+`conformer`, the ECAPA/ResNet34/SimAM speech encoders, the TS-VAD
+`conformer` and BiLSTM (`lstm_fwd`/`lstm_bwd` for flax's
+OptimizedLSTMCell_0/_1) backends and the upsampling `speech_down` go
+through them inside `tsvad_from_flax`/`tsvad_to_flax`, `eda_from_flax`/
+`eend_to_flax` and `spk_from_flax`/`spk_to_flax`; `encoder_from_flax` /
+`encoder_to_flax` map any speech encoder by its export-encoder name.
 """
 
 from __future__ import annotations
@@ -193,10 +209,95 @@ def _mamba2_backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tens
     return {k: _t(v) for k, v in sd.items()}
 
 
-def _backend_from_flax_any(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
+_ATT = ("query", "key", "value")
+_TRANSPOSED = "up"  # the ConvTranspose of models/tsvad.SpeechFeatUpsample
+
+
+def named_from_flax(params: dict, stats: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax variables of a module ported with the flax names → state-dict
+    entries under `prefix`."""
+    sd: Dict[str, torch.Tensor] = {}
+    pre = (prefix,) if prefix else ()
+    for path, w in _flatten(params):
+        mod, leaf = path[:-1], path[-1]
+        name = ".".join(pre + mod)
+        if leaf == "kernel":
+            if mod[-1] in _ATT and w.ndim == 3:  # (D, H, Dh)
+                w = w.reshape(w.shape[0], -1).T
+            elif mod[-1] == "out" and w.ndim == 3:  # (H, Dh, D)
+                w = w.reshape(-1, w.shape[-1]).T
+            elif mod[-1] == _TRANSPOSED:
+                w = w.transpose(1, 2, 0)[..., ::-1]
+            else:
+                w = _kernel(w)
+            sd[f"{name}.weight"] = _t(w)
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = _t(w)
+        else:
+            sd[f"{name}.{leaf}"] = _t(w.reshape(-1))
+    for path, w in _flatten(stats):
+        name = ".".join(pre + path[:-1])
+        sd[f"{name}.{_BN_LEAF[path[-1]]}"] = _t(w)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def named_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int = 0) -> dict:
+    """The inverse of `named_from_flax` for state-dict entries named from
+    the module down → JAX variables as numpy ({'params', 'batch_stats'})."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        w = t.detach().cpu().float().numpy()
+        mod, leaf = tuple(name.split(".")[:-1]), name.split(".")[-1]
+        if leaf in ("running_mean", "running_var"):
+            _put(out["batch_stats"], (*mod, "mean" if leaf == "running_mean" else "var"), w)
+        elif leaf == "bias":
+            _put(out["params"], (*mod, "bias"), w.reshape(num_heads, -1) if mod[-1] in _ATT and num_heads else w)
+        elif w.ndim == 1:  # a norm's scale
+            _put(out["params"], (*mod, "scale"), w)
+        elif mod[-1] in _ATT and num_heads:  # (H·Dh, D) → (D, H, Dh)
+            _put(out["params"], (*mod, "kernel"), w.T.reshape(w.shape[1], num_heads, -1))
+        elif mod[-1] == "out" and num_heads:  # (D, H·Dh) → (H, Dh, D)
+            _put(out["params"], (*mod, "kernel"), w.T.reshape(num_heads, -1, w.shape[0]))
+        elif mod[-1] == _TRANSPOSED:
+            _put(out["params"], (*mod, "kernel"), w[..., ::-1].transpose(2, 0, 1))
+        else:  # Dense, Conv1d, Conv2d
+            _put(out["params"], (*mod, "kernel"), w.transpose({2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}[w.ndim]))
+    return out
+
+
+_BILSTM = {"OptimizedLSTMCell_0": "lstm_fwd", "OptimizedLSTMCell_1": "lstm_bwd"}
+
+
+def _bilstm_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    sd = {f"{prefix}.proj.weight": _t(params["proj"]["kernel"].T), f"{prefix}.proj.bias": _t(params["proj"]["bias"])}
+    for cell, name in _BILSTM.items():
+        sd.update(_lstm_from_flax(params[cell], f"{prefix}.{name}"))
+    return sd
+
+
+def _bilstm_to_flax(parts: list, w: np.ndarray, params: dict, top: str) -> None:
+    """One BiLSTM backend tensor ([module, ..., leaf] below the backend) into params."""
+    mod, leaf = parts[0], parts[-1]
+    if mod == "proj":
+        _put(params, (top, "proj", "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w)
+        return
+    cell = {v: k for k, v in _BILSTM.items()}[mod]
+    kind = "i" if parts[1] == "input" else "h"
+    for g, wg in zip(_GATES, np.split(w, 4, axis=0)):
+        _put(params, (top, cell, kind + g, "kernel" if leaf == "weight" else "bias"), wg.T if leaf == "weight" else wg)
+
+
+def _backend_from_flax_any(params: dict, stats: dict, prefix: str) -> Dict[str, torch.Tensor]:
     """A TS-VAD backend of any ported kind, told apart by its own keys: a
-    transformer has layer_i, a BiMamba-2 layer a dt_bias, a BiMamba layer
-    an x_proj."""
+    conformer has `conformer`, a BiLSTM its two cells, a transformer
+    layer_i, a BiMamba-2 layer a dt_bias, a BiMamba layer an x_proj."""
+    if "conformer" in params:
+        return named_from_flax(params, stats, prefix)
+    if "OptimizedLSTMCell_0" in params:
+        return _bilstm_from_flax(params, prefix)
     if "fwd_0" not in params:
         return _backend_from_flax(params, prefix)
     if "dt_bias" in params["fwd_0"]:
@@ -238,35 +339,40 @@ def load_encoder_npz(path: str) -> Tuple[dict, dict]:
     return meta, {"params": out.get("params", {}), "batch_stats": out.get("batch_stats", {})}
 
 
-def _conv_bn_from_flax(params: dict, stats: dict, prefix: str) -> Dict[str, torch.Tensor]:
-    sd = {
-        f"{prefix}.conv.weight": _kernel(params["conv"]["kernel"]),
-        f"{prefix}.conv.bias": params["conv"]["bias"],
-        f"{prefix}.bn.weight": params["bn"]["scale"],
-        f"{prefix}.bn.bias": params["bn"]["bias"],
-        f"{prefix}.bn.running_mean": stats["bn"]["mean"],
-        f"{prefix}.bn.running_var": stats["bn"]["var"],
-    }
-    out = {k: _t(v) for k, v in sd.items()}
-    out[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-    return out
+def _speech_encoder_from_flax(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
+    """CAM++ (it has the FCM `head`) or an encoder ported with the flax names."""
+    if "head" in params:
+        return campplus_from_flax(params, stats)
+    return named_from_flax(params, stats)
+
+
+def encoder_from_flax(name: str, params: dict, stats: dict) -> Dict[str, torch.Tensor]:
+    """A speech encoder's flax variables → its state dict, by the
+    export-encoder name (campplus | ecapa | resnet34)."""
+    return campplus_from_flax(params, stats) if name == "campplus" else named_from_flax(params, stats)
+
+
+def encoder_to_flax(name: str, state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of `encoder_from_flax`."""
+    return campplus_to_flax(state_dict) if name == "campplus" else named_to_flax(state_dict)
 
 
 def tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX TSVADModel variables ({'params', 'batch_stats'}, arrays) →
-    this package's TSVADModel state_dict (CAM++ encoder, transformer,
-    BiMamba or BiMamba-2 backends)."""
+    this package's TSVADModel state_dict (CAM++, ECAPA, ResNet34 or
+    SimAM-ResNet34 encoder; transformer, conformer, BiLSTM, BiMamba or
+    BiMamba-2 backends)."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
-    enc = campplus_from_flax(p["speech_encoder"], s["speech_encoder"])
+    enc = _speech_encoder_from_flax(p["speech_encoder"], s["speech_encoder"])
     sd.update({f"speech_encoder.{k}": v for k, v in enc.items()})
-    sd.update(_conv_bn_from_flax(p["speech_down"], s["speech_down"], "speech_down"))
-    sd.update(_conv_bn_from_flax(p["backend_down"], s["backend_down"], "backend_down"))
+    for name in ("speech_down", "backend_down"):  # ConvBnRelu, or SpeechFeatUpsample
+        sd.update(named_from_flax(p[name], s[name], name))
     if "proj_layer" in p:
         sd["proj_layer.weight"] = _t(p["proj_layer"]["kernel"].T)
         sd["proj_layer.bias"] = _t(p["proj_layer"]["bias"])
     for name in ("single_backend", "multi_backend"):
-        sd.update(_backend_from_flax_any(p[name], name))
+        sd.update(_backend_from_flax_any(p[name], s.get(name, {}), name))
     sd["fc.weight"] = _t(p["fc"]["kernel"].T)
     sd["fc.bias"] = _t(p["fc"]["bias"])
     return sd
@@ -332,7 +438,7 @@ def spk_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX SpeakerClassifier variables ({'params', 'batch_stats'}) → this
     package's SpeakerClassifier state_dict."""
     p, s = variables["params"], variables.get("batch_stats", {})
-    sd = {f"speech_encoder.{k}": v for k, v in campplus_from_flax(p["speech_encoder"], s["speech_encoder"]).items()}
+    sd = {f"speech_encoder.{k}": v for k, v in _speech_encoder_from_flax(p["speech_encoder"], s["speech_encoder"]).items()}
     sd["aam_weight"] = _t(p["aam_weight"])
     return sd
 
@@ -340,7 +446,8 @@ def spk_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
 def spk_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     """SpeakerClassifier state_dict → JAX variables as numpy; the inverse of `spk_from_flax`."""
     pre = "speech_encoder."
-    enc = campplus_to_flax({k[len(pre):]: v for k, v in state_dict.items() if k.startswith(pre)})
+    enc_sd = {k[len(pre):]: v for k, v in state_dict.items() if k.startswith(pre)}
+    enc = campplus_to_flax(enc_sd) if "head.conv1.weight" in enc_sd else named_to_flax(enc_sd)
     aam = np.ascontiguousarray(state_dict["aam_weight"].detach().cpu().float().numpy())
     return {"params": {"speech_encoder": enc["params"], "aam_weight": aam},
             "batch_stats": {"speech_encoder": enc["batch_stats"]}}
@@ -370,22 +477,22 @@ def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
     ({'params', 'batch_stats'}); the inverse of `tsvad_from_flax`, so
     weights made here can be written with `save_flax_npz`."""
     out = {"params": {}, "batch_stats": {}}
+    campplus = any(n.startswith("speech_encoder.head.") for n in state_dict)
+    named: Dict[str, Dict[str, torch.Tensor]] = {}  # top → entries mapped by name
     for name, t in state_dict.items():
         if name.endswith("num_batches_tracked"):
             continue
         w = t.detach().cpu().float().numpy()
         parts = name.split(".")
         top, leaf = parts[0], parts[-1]
-        if top == "speech_encoder":
+        if (top == "speech_encoder" and not campplus) or top in ("speech_down", "backend_down") \
+                or parts[1] == "conformer":
+            named.setdefault(top, {})[name[len(top) + 1:]] = t
+        elif top == "speech_encoder":
             coll, path, w = _campplus_to_flax(parts[1:-1], leaf, w)
             _put(out[coll], ("speech_encoder", *path), w)
-        elif top in ("speech_down", "backend_down"):
-            if parts[1] == "conv":
-                _put(out["params"], (top, "conv", "kernel" if leaf == "weight" else "bias"),
-                     w.transpose(2, 1, 0) if leaf == "weight" else w)
-            else:
-                coll, n = _BN_LEAF_INV[leaf]
-                _put(out[coll], (top, "bn", n), w)
+        elif parts[1] in _BILSTM.values() or parts[1] == "proj":
+            _bilstm_to_flax(parts[1:], w, out["params"], top)
         elif top in ("fc", "proj_layer"):
             _put(out["params"], (top, "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w)
         elif not parts[1].startswith("layer_"):  # a BiMamba or BiMamba-2 backend
@@ -394,6 +501,10 @@ def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
         else:  # {single,multi}_backend.layer_i.<...>
             path, w = _layer_to_flax(parts[1:], w, num_heads)
             _put(out["params"], (top, *path), w)
+    for top, sd in named.items():
+        for coll, tree in named_to_flax(sd, num_heads).items():
+            if tree:
+                out[coll][top] = tree
     return out
 
 
@@ -498,20 +609,30 @@ def _attractor_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def eda_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
-    """JAX EendEdaModel variables ({'params'}, transformer encoder) → EendEdaModel state_dict."""
+    """JAX EendEdaModel variables ({'params'} and, for a conformer with
+    batch norms, 'batch_stats'; transformer or conformer encoder) →
+    EendEdaModel state_dict."""
     p = variables["params"]
-    return {**_encoder_from_flax(p["encoder"], "encoder"), **_attractor_from_flax(p["eda"], "eda")}
+    if "block_0" in p["encoder"]:  # a conformer
+        enc = named_from_flax(p["encoder"], variables.get("batch_stats", {}).get("encoder", {}), "encoder")
+    else:
+        enc = _encoder_from_flax(p["encoder"], "encoder")
+    return {**enc, **_attractor_from_flax(p["eda"], "eda")}
 
 
 def eend_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
     """EENDModel or EendEdaModel state_dict → JAX variables as numpy
-    ({'params'}); the inverse of `eend_from_flax` / `eda_from_flax`."""
+    ({'params'}, and 'batch_stats' for a conformer with batch norms); the
+    inverse of `eend_from_flax` / `eda_from_flax`."""
     params: dict = {}
+    conformer: Dict[str, torch.Tensor] = {}
     for name, t in state_dict.items():
         w = t.detach().cpu().float().numpy()
         parts = name.split(".")
         top, leaf = parts[0], parts[-1]
-        if top == "head" or parts[1] in ("input_proj", "exist_head"):
+        if top == "encoder" and parts[1].startswith("block_"):
+            conformer[name[len("encoder."):]] = t
+        elif top == "head" or parts[1] in ("input_proj", "exist_head"):
             path = tuple(parts[:-1]) + ("kernel" if leaf == "weight" else "bias",)
             _put(params, path, w.T if leaf == "weight" else w)
         elif parts[1] == "input_norm":
@@ -524,4 +645,10 @@ def eend_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
             for g, wg in zip(_GATES, np.split(w, 4, axis=0)):
                 _put(params, ("eda", parts[1], kind + g, "kernel" if leaf == "weight" else "bias"),
                      wg.T if leaf == "weight" else wg)
-    return {"params": params}
+    out = {"params": params}
+    if conformer:
+        enc = named_to_flax(conformer, num_heads)
+        params["encoder"].update(enc["params"])
+        if enc["batch_stats"]:
+            out["batch_stats"] = {"encoder": enc["batch_stats"]}
+    return out

@@ -170,8 +170,15 @@ def test_eda_weight_conversion_round_trips(eda_pair):
 
 
 def test_conformer_encoder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        EendEdaModel(**SMALL, encoder_type="conformer", device="cpu")
+    """The conformer encoder is ported now (tests/test_torch_conformer.py
+    holds it to JAX): it builds, and an unknown encoder type raises as the
+    JAX model does."""
+    from speaker_diarization_tpu_torch.models.conformer import ConformerEncoder
+
+    model = EendEdaModel(**SMALL, encoder_type="conformer", device="cpu")
+    assert isinstance(model.encoder, ConformerEncoder)
+    with pytest.raises(ValueError, match="transformer|conformer"):
+        EendEdaModel(**SMALL, encoder_type="lstm", device="cpu")
 
 
 def test_attractor_existence_loss_matches_jax():

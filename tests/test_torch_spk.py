@@ -215,8 +215,15 @@ def test_encoder_npz_round_trip_both_ways(classifier, tmp_path):
 
 
 def test_unported_encoders_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        E.SpeakerClassifier(E.SpkEmbedConfig(encoder="ecapa"), device="cpu")
+    """ECAPA and ResNet34 are ported now (tests/test_torch_speaker_encoders.py);
+    any other encoder name raises as the JAX classifier does, and the zoo's
+    unported encoders cite the ROADMAP."""
+    from speaker_diarization_tpu_torch.models.speaker_encoders import build_speaker_encoder
+
+    with pytest.raises(ValueError, match="unknown encoder"):
+        E.SpeakerClassifier(E.SpkEmbedConfig(encoder="wavlm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+        build_speaker_encoder("eres2net")
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,11 @@ def test_weight_conversion_round_trips(tsvad_pair, tmp_path):
 
 
 def test_unported_encoders_and_backends_raise():
-    for kw in (dict(speech_encoder_type="wavlm"), dict(single_backend_type="conformer"), dict(multi_backend_type="lstm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The encoders not ported yet raise, citing the ROADMAP; the conformer
+    and lstm backends are ported (tests/test_torch_conformer.py) and an
+    unknown backend raises as in JAX."""
+    for kw in (dict(speech_encoder_type="wavlm"), dict(speech_encoder_type="whisper")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
             TSVADModel(TSVADConfig(**SMALL, **kw), device="cpu")
+    with pytest.raises(ValueError, match="unknown backend type"):
+        TSVADModel(TSVADConfig(**SMALL, multi_backend_type="gru"), device="cpu")
