@@ -63,6 +63,14 @@ each with the launch counts set to 0 just before and read just after:
 - a TS-VAD train step with remat on and off (CAM++'s dense layers
   recomputed in the backward pass): the same loss, and the peak memory
   (`torch.cuda.max_memory_allocated`) of each;
+- SOND at SONDConfig() (16 profiles, 2517 powerset classes, ResNet34
+  3,4,6,3, bf16, batch 16 × 4 s at 16 kHz): fbank 1 a forward and a step;
+  TS-VAD3 at TSVAD3Config() (CAM++ 12/24/16 on the mixture and on 4 × 6 s
+  enrollment waveforms, frame fusion): fbank 2; EEND-VC at the CLI's widths
+  (batch 32 × 200 frames at 8 kHz): logmel 1; each forward held to its plain
+  twin (bf16 and fp32), five adam steps on one batch must lower the loss, and
+  the forward and the leaderboard's train step are timed with the
+  profiler's busy share;
 then the CLI: `infer --family tsvad` + `score` from flax-layout weights,
 `train --family tsvad` (Mamba, two comma-separated --train-dir corpora,
 batch 64 × 4 s, bf16, with validation and checkpoints) followed by `infer
@@ -77,7 +85,8 @@ hermetic recipe's stages 1-2 and 5-6 on the same corpus (`train --family
 tsvad_streaming` and `train --family tsvad` with BiMamba-2 backends and the
 exported encoder, 4 steps each, each followed by `infer --threshold-sweep`
 and `score`), the torch leaderboard's ecapa stage (4 steps, `infer
---threshold-sweep --cder`, `score --cder`), `simulate-meetings` and
+--threshold-sweep --cder`, `score --cder`), its sond, tsvad3 and eend_vc
+stages (4 steps each, `infer --threshold-sweep`, `score`), `simulate-meetings` and
 `config-dump` in its three formats, each stage's output checked. Each phase prints one line and raises on failure. The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": ...}.
@@ -797,6 +806,54 @@ def recipe_chain():
         phase("cli", f"ecapa stage (train 4 steps, bf16, batch 32 x 4 s; infer --threshold-sweep --cder; score "
               f"--cder): {time.perf_counter() - t0:.1f} s; best threshold {best.group(1)}: DER/MS/FA/SC {lines[-2]}, "
               f"{lines[-1]}")
+
+        # the torch leaderboard's sond, tsvad3 and eend_vc stages
+        # (recipes/hermetic_leaderboard_torch.sh), flag for flag at 4 steps,
+        # each followed by the threshold sweep and the score
+        data = {split: os.path.join(tmp, split, "data") for split in split_mix}
+        tad = {split: os.path.join(tmp, split, "targets", "target_audio") for split in split_mix}
+        last = ["num_steps=4", "log_every=2", "valid_every=2"]
+        stages = {
+            "sond": (["--emb-store", f"{stores['train']},{stores['valid']}"],
+                     ["sample_rate=8000", "n_mels=80", "n_speakers=4", "rs_len=4.0", "d_model=256",
+                      "encoder_blocks=2,2,2,2"],
+                     ["segment_shift=2.0", "batch_size=16", "optimizer=adam", "schedule=poly", "learning_rate=2e-4",
+                      "warmup_steps=400", "bf16=true"], ["--emb-store", stores["test"]]),
+            "tsvad3": (["--target-audio-dir", tad["train"], "--valid-target-audio-dir", tad["valid"], "--encoder-ckpt",
+                        enc, "--noise-dir", f"{pool}/noise"],
+                       ["sample_rate=8000", "n_mels=80", "encoder_blocks=12,24,16", "rs_len=4.0", "ts_len=3.0"],
+                       ["segment_shift=2.0", "batch_size=16", "optimizer=adam", "schedule=poly", "learning_rate=2e-4",
+                        "warmup_steps=400", "bf16=true"], ["--target-audio-dir", tad["test"]]),
+            "eend_vc": ([], ["sample_rate=8000", "n_speakers=3", "n_mels=23", "d_model=256", "d_ff=1024", "n_layers=4",
+                             "n_heads=4", "chunk_frames=200"],
+                        ["batch_size=32", "optimizer=adam", "schedule=noam", "learning_rate=1.0", "warmup_steps=1000",
+                         "bf16=true"], ["--num-spks", "-1", "--sil-spk-th", "0.2"]),
+        }
+        for fam, (train_args, model_sets, opt_sets, infer_args) in stages.items():
+            exp, hyp = os.path.join(tmp, f"lb_{fam}"), os.path.join(tmp, f"hyp_{fam}.rttm")
+            t0 = time.perf_counter()
+            cli("train", "--family", fam, "--train-dir", data["train"], "--valid-dir", data["valid"], "--exp-dir", exp,
+                *train_args, *[a for kv in model_sets + opt_sets + last for a in ("--set", kv)], timeout=900)
+            trains, valids, ckpts = read_metrics(exp)
+            if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in trains + valids) \
+                    or not ckpts:
+                raise AssertionError(f"CLI train ({fam} stage) did not log, validate and checkpoint: {trains}, {valids}")
+            t_train = time.perf_counter() - t0
+            step = [] if fam != "eend_vc" else ["--step", str(int(ckpts[-1].split("_")[1].split(".")[0]))]
+            out = cli("infer", "--family", fam, "--data-dir", data["test"], "--exp-dir", exp, "--out", hyp,
+                      "--threshold-sweep", "--ref", f"{data['test']}/rttm", *infer_args, *step,
+                      *[a for kv in model_sets for a in ("--set", kv)])
+            best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", out)
+            n_rttm = sum(fn.startswith(f"hyp_{fam}.rttm_") for fn in os.listdir(tmp))
+            if not best or n_rttm != 18:
+                raise AssertionError(f"CLI infer ({fam} stage) wrote {n_rttm} RTTMs:\n{out}")
+            line = cli("score", "--ref", f"{data['test']}/rttm", "--sys", f"{hyp}_{float(best.group(1)):.2f}").strip()
+            line = line.splitlines()[-1] if line else ""
+            if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
+                raise AssertionError(f"CLI score printed no DER line for the {fam} stage: {line!r}")
+            phase("cli", f"{fam} stage (train 4 steps, bf16: {t_train:.1f} s, last log {trains[-1]}; infer "
+                  f"--threshold-sweep; score): best threshold {best.group(1)}, DER/MS/FA/SC {line}, "
+                  f"{time.perf_counter() - t0:.1f} s")
 
         # simulate-meetings from the voice pool, and config-dump in its three formats
         t0 = time.perf_counter()
@@ -1771,6 +1828,85 @@ def main() -> int:
         raise AssertionError(f"remat changed the TS-VAD loss: {rlosses}")
     del rb
 
+    # ---- the seventh slice at full width: SOND (SONDConfig(): 16 profiles,
+    # 2517 classes, bf16, 16 x 4 s at 16 kHz; fbank 1), TS-VAD3
+    # (TSVAD3Config(): CAM++ 12/24/16 on both sides, 4 x 6 s enrollment,
+    # frame fusion; fbank 2) and EEND-VC (the CLI's widths, 32 x 200 frames
+    # at 8 kHz; logmel 1): each forward held to its plain twin (bf16
+    # mean-abs, fp32 max-abs), five adam steps on one batch that must lower
+    # the loss, and the forward and the recipe's train step timed, with the
+    # device's busy share from the profiler
+    from speaker_diarization_tpu_torch.bench import (make_slice7_batches, slice7_forward, slice7_loss, slice7_model,
+                                                     slice7_recipe_trainer, slice7_throughput)
+
+    slice7_launches = {}
+    for fam, per_pass in (("sond", want(fbank=1)), ("tsvad3", want(fbank=2)), ("eend_vc", want(logmel=1))):
+        smodel7, _ = slice7_model(fam, dev, seed=21)
+        sb = make_slice7_batches(fam, smodel7, 3, seed=22, device=dev)
+        fwd = slice7_forward(fam, smodel7)
+        with torch.no_grad():
+            fwd(sb[0])  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            out = fwd(sb[1])
+            torch.cuda.synchronize()
+            slice7_launches[fam] = read_counts()
+            outs = out if isinstance(out, tuple) else (out,)
+            phase(fam, f"bf16 {tuple(sb[1]['audio'].shape)} -> {[tuple(o.shape) for o in outs]}; launches "
+                  f"{slice7_launches[fam]}")
+            if slice7_launches[fam] != per_pass or not all(torch.isfinite(o).all() for o in outs):
+                raise AssertionError(f"{fam} forward launches {slice7_launches[fam]}, want {per_pass}, or non-finite")
+            refs = plain_forward(fwd, sb[1])
+            refs = refs if isinstance(refs, tuple) else (refs,)
+            errs = [((o.float() - r.float()).abs().mean().item(), max(1.0, r.float().abs().mean().item()))
+                    for o, r in zip(outs, refs)]
+            phase(fam, "bf16 outputs vs plain twin: mean-abs " + ", ".join(f"{e:.3e} (bar 5e-2 x {sc:.3f})"
+                                                                         for e, sc in errs))
+            if not all(e <= 5e-2 * sc for e, sc in errs):
+                raise AssertionError(f"bf16 {fam} forward disagrees with the plain twin: {errs}")
+            m32, _ = slice7_model(fam, dev, seed=21, bf16=False)
+            b8 = {k: v[:8] for k, v in sb[2].items()}
+            if fam == "eend_vc":
+                b8["frame_mask"] = b8["frame_mask"].clone()
+                b8["frame_mask"][1, 120:] = 0.0  # padded frames too
+            f32 = slice7_forward(fam, m32)
+            got32, ref32 = f32(b8), plain_forward(f32, b8)
+            got32 = got32 if isinstance(got32, tuple) else (got32,)
+            ref32 = ref32 if isinstance(ref32, tuple) else (ref32,)
+            errs32 = [((o - r).abs().max().item(), max(1.0, r.abs().max().item())) for o, r in zip(got32, ref32)]
+            phase(fam, "fp32 outputs (B=8) vs plain twin: max-abs " + ", ".join(f"{e:.3e} (bar 1e-3 x {sc:.3f})"
+                                                                              for e, sc in errs32))
+            if not all(e <= 1e-3 * sc for e, sc in errs32):
+                raise AssertionError(f"fp32 {fam} forward disagrees with the plain twin: {errs32}")
+            del m32
+            table, dev_ms = profile(lambda: fwd(sb[0]))
+        tp7 = slice7_throughput(fam, smodel7, sb, iters=10, reps=3)
+        phase("throughput", f"{fam} bf16 forward, batch {tuple(sb[0]['audio'].shape)}: {tp7['ms_per_forward']:.3f} "
+              f"ms/forward, {tp7['audio_s_per_s']:.1f} audio-s/s; profiler device time {dev_ms:.3f} ms/forward, "
+              f"busy share {dev_ms / tp7['ms_per_forward']:.3f} (checksum {tp7['witness']:.6e}, reps "
+              f"{[round(r, 4) for r in tp7['reps_s']]})")
+        # five adam steps on one batch, dropout off, so that the loss moves
+        # only with the weights. Adam's first step moves every weight by the
+        # rate: at 1e-4 the fresh SOND's loss jumped before it fell and
+        # EEND-VC's ended above its start, so these two step at 1e-5
+        lr7 = 1e-4 if fam == "tsvad3" else 1e-5
+        fmodel7, _ = slice7_model(fam, dev, seed=21, dropout=0.0)
+        fixed = Trainer(fmodel7, slice7_loss(fam), TrainerConfig(optimizer="adam", schedule="const",
+                                                                 learning_rate=lr7))
+        losses7, tl7 = fixed_batch_steps(fixed, sb[0], per_pass, fam)
+        phase("train", f"{fam}: 5 adam steps at {lr7:g} on one batch (bf16, dropout 0): losses "
+              f"{[round(v, 5) for v in losses7]}; launches per step {tl7}")
+        del fmodel7, fixed
+        rtrainer = slice7_recipe_trainer(fam, smodel7)
+        tt7 = train_throughput(rtrainer, sb, iters=3, reps=3)
+        _, step_ms = profile(lambda: rtrainer.train_step(sb[0]))
+        phase("throughput", f"{fam} train step (leaderboard settings, bf16, batch {tuple(sb[0]['audio'].shape)}): "
+              f"{tt7['ms_per_step']:.3f} ms/step; profiler device time {step_ms:.3f} ms/step, busy share "
+              f"{step_ms / tt7['ms_per_step']:.3f} (loss checksum {tt7['witness']:.6e}, reps "
+              f"{[round(r, 4) for r in tt7['reps_s']]})")
+        del smodel7, rtrainer, sb
+        torch.cuda.empty_cache()
+
     # ---- the entry point answers requests: CLI infer + score on a generated corpus
     from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
     from speaker_diarization_tpu_torch.utils.convert import save_flax_npz, tsvad_to_flax
@@ -1916,6 +2052,9 @@ def main() -> int:
     # every stage through the CLI at full width, on a small corpus)
     recipe_chain()
 
+    # where each kernel launched, per path driven above (counts of one forward or step)
+    sites = {"tsvad": launches, "tsvad_mamba": mlaunches, "tsvad_mamba_train_step": tlaunches, **eend_launches,
+             **slice7_launches}
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (
@@ -1934,6 +2073,7 @@ def main() -> int:
         kernels.append(dict(
             name=key, route="cuda", source=src, replaces=replaces, launches=path_launches[key], max_abs_err=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            launch_sites={path: c[key] for path, c in sites.items() if c[key]},
         ))
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

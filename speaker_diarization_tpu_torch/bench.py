@@ -33,12 +33,24 @@ poly, lr 1e-3, warmup 200, clip 5); without, windows per second of the fp32
 embedding forward `extract-embeddings` runs (fbank + CAM++ in eval, batch 32
 × 6 s windows at 8 kHz).
 
+`--family sond|tsvad3|eend_vc` measures the seventh slice at full width:
+SOND at SONDConfig() (16 profiles, 2517 powerset classes, ResNet34 3,4,6,3,
+bf16, batch 16 × 4 s at 16 kHz; the forward is what `infer` computes:
+fbank, logits, per-speaker probabilities), TS-VAD3 at TSVAD3Config() (CAM++
+12/24/16 on the mixture and on 4 enrollment waveforms of 6 s, frame fusion,
+bf16, batch 16 × 4 s at 16 kHz) and EEND-VC at the CLI's widths and the
+leaderboard's chunks (d_model 256, 4 layers, 3 channels, 8 kHz, bf16, batch
+32 × 200 frames = 20 s); with `--train`, ms per step at the hermetic
+leaderboard's settings (SOND, TS-VAD3: adam, poly, lr 2e-4, warmup 400;
+EEND-VC: adam, noam, lr 1.0, warmup 1000; clip 5).
+
 Completion is proven by a data dependency: every forward's probability
 checksum (every step's loss) is chained into one device scalar that is read
 on the host after torch.cuda.synchronize(), so the clock cannot stop before
 every forward or step ran.
 
-    python -m speaker_diarization_tpu_torch.bench [--family tsvad|tsvad_streaming|eend|eend_eda|spk] \\
+    python -m speaker_diarization_tpu_torch.bench \\
+        [--family tsvad|tsvad_streaming|eend|eend_eda|spk|sond|tsvad3|eend_vc] \\
         [--backend mamba|mamba2] \\
         [--train] [--profile profile.txt]
 
@@ -290,9 +302,117 @@ def embed_throughput(encoder, audios, iters: int = 10, reps: int = 3) -> Dict[st
                 reps_s=dts)
 
 
+# the seventh slice: SOND, TS-VAD3 and EEND-VC at full width
+SLICE7_BATCH, SLICE7_RATE, ENROLL_S = 16, 16000, 6.0
+VC_BATCH, VC_CHUNK, VC_SPEAKERS = 32, 200, 32  # the leaderboard's eend_vc batch and chunk; a 32-row speaker table
+
+
+def slice7_model(family: str, device, seed: int = 0, bf16: bool = True, dropout: float = 0.1):
+    """(model, TrainCliConfig or None) at the full widths above, seeded random weights."""
+    from .models.sond import SONDConfig, SONDModel
+    from .models.tsvad import TSVADConfig
+    from .models.tsvad3 import TSVAD3Config, TSVAD3Model
+
+    dtype = "bf16" if bf16 else "fp32"
+    if family == "sond":
+        return SONDModel(SONDConfig(dropout=dropout), dtype=dtype, device=device, seed=seed), None
+    if family == "tsvad3":
+        cfg = TSVAD3Config(base=TSVADConfig(dropout=dropout))
+        return TSVAD3Model(cfg, dtype=dtype, device=device, seed=seed), None
+    return eend_model("eend_vc", device, seed=seed, bf16=bf16, n_speakers=3, chunk_frames=VC_CHUNK,
+                      all_n_speakers=VC_SPEAKERS, dropout=dropout)
+
+
+def make_slice7_batches(family: str, model, n_bufs: int, seed: int, device) -> List[Dict]:
+    """Distinct seeded device batches of the family's training loss: SOND
+    {audio, target_embs (the 16 profiles, the last 12 absent in half the
+    batch), labels at 25 Hz}, TS-VAD3 {audio, enroll_audio, labels}, EEND-VC
+    the EEND chunk batch with speaker ids (−1 among them)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    if family == "eend_vc":
+        from .cli.main import TrainCliConfig
+
+        cfg = TrainCliConfig(family="eend_vc", n_speakers=3, chunk_frames=VC_CHUNK)
+        out = make_eend_batches(cfg, VC_BATCH, n_bufs, seed, device)
+        for b in out:
+            ids = rng.integers(0, VC_SPEAKERS, (VC_BATCH, 3)).astype(np.int32)
+            ids[rng.random((VC_BATCH, 3)) < 0.2] = -1
+            b["spk_ids"] = t(ids)
+        return out
+    n = int(CHUNK_S * SLICE7_RATE)
+    S = model.cfg.max_speakers if family == "sond" else model.cfg.base.max_num_speaker
+    out = []
+    for _ in range(n_bufs):
+        b = dict(audio=t((0.1 * rng.standard_normal((SLICE7_BATCH, n))).astype(np.float32)),
+                 labels=t((rng.random((SLICE7_BATCH, int(CHUNK_S * 25), S)) < (0.15 if family == "sond" else 0.3))
+                          .astype(np.float32)))
+        if family == "sond":
+            embs = rng.standard_normal((SLICE7_BATCH, S, 192)).astype(np.float32)
+            embs[: SLICE7_BATCH // 2, 4:] = 0.0
+            b["target_embs"] = t(embs)
+        else:
+            b["enroll_audio"] = t((0.1 * rng.standard_normal((SLICE7_BATCH, S, int(ENROLL_S * SLICE7_RATE))))
+                                  .astype(np.float32))
+        out.append(b)
+    return out
+
+
+def slice7_forward(family: str, model) -> Callable[[Dict], torch.Tensor]:
+    """batch → what `infer` computes on the device: SOND's per-speaker
+    probabilities on the 25 Hz grid, TS-VAD3's logits, EEND-VC's (logits,
+    chunk vectors)."""
+    if family == "sond":
+        from .infer.chunked import sond_probabilities
+
+        return lambda b: sond_probabilities(model, b["audio"], b["target_embs"], SLICE7_RATE)
+    if family == "tsvad3":
+        return lambda b: model(b["audio"], b["enroll_audio"], int(CHUNK_S * 25))
+    return lambda b: model(b["audio"], b["frame_mask"])
+
+
+def slice7_loss(family: str):
+    from .train import tasks
+
+    if family == "sond":
+        return tasks.make_sond_loss_from_audio(sample_rate=SLICE7_RATE)
+    if family == "tsvad3":
+        return tasks.make_tsvad3_loss(int(CHUNK_S * 25))
+    return tasks.make_eend_vc_loss()
+
+
+def slice7_recipe_trainer(family: str, model, seed: int = 0):
+    """A Trainer with the hermetic leaderboard's settings for the family."""
+    from .train.trainer import Trainer, TrainerConfig
+
+    if family == "eend_vc":
+        tcfg = TrainerConfig(optimizer="adam", schedule="noam", learning_rate=1.0, d_model=256, warmup_steps=1000,
+                             grad_clip_norm=5.0, seed=seed)
+    else:
+        tcfg = TrainerConfig(optimizer="adam", schedule="poly", learning_rate=2e-4, warmup_steps=400,
+                             total_steps=4000, grad_clip_norm=5.0, seed=seed)
+    return Trainer(model, slice7_loss(family), tcfg)
+
+
+@torch.no_grad()
+def slice7_throughput(family: str, model, batches, iters: int = 10, reps: int = 3) -> Dict[str, float]:
+    """Median over `reps` of `iters` pipelined forwards on distinct batches."""
+    fwd = slice7_forward(family, model)
+
+    def call(i):
+        out = fwd(batches[i % len(batches)])
+        return sum(o.float().sum() for o in out) if isinstance(out, tuple) else out.float().sum()
+
+    dt, witness, dts = _pipelined(call, batches[0]["audio"].device, iters, reps)
+    B, N = batches[0]["audio"].shape
+    rate = model.frontend.sample_rate if family == "eend_vc" else SLICE7_RATE
+    return dict(ms_per_forward=1e3 * dt / iters, audio_s_per_s=B * N / rate * iters / dt, witness=witness, reps_s=dts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--family", choices=["tsvad", "tsvad_streaming", "eend", "eend_eda", "spk"], default="tsvad")
+    ap.add_argument("--family", choices=["tsvad", "tsvad_streaming", "eend", "eend_eda", "spk", "sond", "tsvad3",
+                                         "eend_vc"], default="tsvad")
     ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add", "mamba2", "mamba2_add"],
                     default="transformer", help="tsvad: both backends")
     ap.add_argument("--train", action="store_true", help="time train steps instead of forwards")
@@ -349,6 +469,20 @@ def main(argv=None) -> int:
 
             def forward():
                 return fwd(audios[0])
+    elif args.family in ("sond", "tsvad3", "eend_vc"):
+        model, _ = slice7_model(args.family, "cuda")
+        batches = make_slice7_batches(args.family, model, 4, 0, model.device)
+        meta.update(batch=batches[0]["audio"].shape[0],
+                    chunk_s=batches[0]["audio"].shape[1] / (8000 if args.family == "eend_vc" else SLICE7_RATE))
+        if args.train:
+            trainer = slice7_recipe_trainer(args.family, model)
+            res = train_throughput(trainer, batches)
+        else:
+            res = slice7_throughput(args.family, model, batches)
+            fwd = slice7_forward(args.family, model)
+
+            def forward():
+                return fwd(batches[0])
     else:
         model, cfg = eend_model(args.family, "cuda")
         batches = make_eend_batches(cfg, EEND_BATCH, 4, 0, model.device)

@@ -22,9 +22,15 @@
         --train-dir D[,D2] --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
         [--noise-dir N] [--rir-dir R] [--encoder-ckpt enc.npz] [--resume] \\
         [--set key=value ...] [--config train.json] [--device cpu]
-    python -m speaker_diarization_tpu_torch.cli train --family tsvad_streaming \\
+    python -m speaker_diarization_tpu_torch.cli train --family tsvad_streaming|sond \\
         --train-dir D[,D2] --valid-dir V --emb-store E.npz[,E2.npz] --exp-dir X \\
         [--noise-dir N] [--rir-dir R] [--resume] [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli train --family tsvad3 \\
+        --train-dir D[,D2] --target-audio-dir T[,T2] [--valid-dir V --valid-target-audio-dir TV] \\
+        --exp-dir X [--encoder-ckpt enc.npz] [--noise-dir N] [--rir-dir R] [--resume] \\
+        [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli train --family eend_vc \\
+        --train-dir D[,D2] [--valid-dir V] --exp-dir X [--resume] [--set key=value ...] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli infer [--family eend|eend_eda] \\
         --data-dir DIR --exp-dir X [--step S] [--avg-last K] --out hyp.rttm \\
         [--set key=value ...] [--attractor-threshold 0.5] \\
@@ -33,6 +39,9 @@
         --data-dir DIR --emb-store EMB.npz (--exp-dir X [--step S] [--avg-last K] \\
         | --params PARAMS.npz [--config tsvad.json]) --out hyp.rttm \\
         [--set key=value ...] [--rs-len 4] [--threshold-sweep --ref ref.rttm [--cder]] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli infer --family sond|tsvad3|eend_vc \\
+        --data-dir DIR --exp-dir X (sond: --emb-store EMB.npz | tsvad3: --target-audio-dir T \\
+        | eend_vc: [--num-spks -1|0|k] [--sil-spk-th 0.05]) --out hyp.rttm [...as above]
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm [--cder]
 
 Ported families: eend, eend_eda (transformer or conformer encoder, `--set
@@ -42,7 +51,12 @@ mamba, mamba_add, mamba2 and mamba2_add backends, and lstm for the multi
 backend, through `--set single_backend_type=… --set
 multi_backend_type=…`), tsvad_streaming
 (its own conv front-end, chunk-masked training, chunk-by-chunk decode of
-each window), and spk (speaker-encoder pretraining, exported by
+each window), tsvad3 (enrollment waveforms from prepare-targets'
+target_audio tree instead of stored embeddings), sond (powerset classes
+over profiles from the embedding store), eend_vc (chunk vectors clustered
+by constrained AHC; `--num-spks` -1 takes each recording's speaker count
+from --ref or the data dir's rttm, 0 cuts the dendrogram at a distance, k
+fixes the count), and spk (speaker-encoder pretraining, exported by
 `export-encoder` in the JAX package's npz format for `extract-embeddings`
 and `train --family tsvad --encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
 package's CLI (`TrainCliConfig`, cli/main.py:33-110; the family defaults to
@@ -67,9 +81,9 @@ import sys
 
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
-FAMILIES = ("eend", "eend_eda", "tsvad", "tsvad_streaming", "spk")  # the ported ones
-INFER_FAMILIES = ("eend", "eend_eda", "tsvad", "tsvad_streaming")  # spk exports an encoder instead
-TSVAD_FAMILIES = ("tsvad", "tsvad_streaming")  # windows with target-speaker embeddings
+FAMILIES = ("eend", "eend_eda", "eend_vc", "tsvad", "tsvad_streaming", "tsvad3", "sond", "spk")  # the ported ones
+INFER_FAMILIES = tuple(f for f in FAMILIES if f != "spk")  # spk exports an encoder instead
+TSVAD_FAMILIES = ("tsvad", "tsvad_streaming", "tsvad3", "sond")  # windows with target speakers
 
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
@@ -80,13 +94,13 @@ _PARAMS_HELP = (
 
 @dataclasses.dataclass
 class TrainCliConfig:
-    """The EEND and TS-VAD fields of the JAX CLI's TrainCliConfig, same
-    names and defaults. The JAX-only fields belong to families not ported
-    yet (ssnd_*, ts_len, fuse_*, enhance_prob, n_data)."""
+    """The fields of the JAX CLI's TrainCliConfig for the ported families,
+    same names and defaults. The JAX-only fields belong to families not
+    ported yet (ssnd_*, enhance_prob, n_data)."""
 
-    family: str = "eend"  # eend | eend_eda | tsvad | tsvad_streaming | spk
+    family: str = "eend"  # eend | eend_eda | eend_vc | tsvad | tsvad_streaming | tsvad3 | sond | spk
     # model
-    n_speakers: int = 2  # tsvad: > 2 sets max_num_speaker, else 4
+    n_speakers: int = 2  # tsvad, tsvad3, sond: > 2 sets the speaker slots, else 4
     max_attractors: int = 15  # eend_eda: attractors decoded at inference
     d_model: int = 256  # EEND width; noam's d_model
     n_layers: int = 4  # EEND encoder layers; TS-VAD layers per backend
@@ -116,14 +130,19 @@ class TrainCliConfig:
     # @100 Hz = 16 frames @25 Hz; num_left_chunks history window)
     streaming_chunk_size: int = 16
     streaming_left_chunks: int = 4
-    encoder_blocks: str = ""  # "12,24,16" = reference CAM++
+    encoder_blocks: str = ""  # "12,24,16" = reference CAM++; sond's ResNet34 "3,4,6,3"
+    # spk classes, eend_vc speaker-table rows; 0 = the training corpus's speakers
+    all_n_speakers: int = 0
     # spk (speaker-embedding pretraining)
-    all_n_speakers: int = 0  # classes; 0 = the training corpus's speakers
     spk_dur: float = 2.0  # crop seconds per training utterance
     aam_margin: float = 0.2
     aam_scale: float = 32.0
     freeze_encoder: bool = False
     enhancer: str = ""  # not ported: a non-empty value raises (ROADMAP item 10)
+    # tsvad3 (enrollment waveforms, egs/alimeeting/ts_vad3)
+    ts_len: float = 6.0  # enrollment seconds per speaker
+    fuse_fbank_feat: bool = False
+    fuse_speaker_embedding_feat: bool = True
     # optimization
     batch_size: int = 16
     num_steps: int = 10000
@@ -140,9 +159,9 @@ class TrainCliConfig:
     valid_every: int = 500
 
 
-def _blocks(cfg: TrainCliConfig) -> tuple:
-    """CAM++ depth: the `encoder_blocks` override, else the reference 12,24,16."""
-    return tuple(int(x) for x in cfg.encoder_blocks.split(",")) if cfg.encoder_blocks else (12, 24, 16)
+def _blocks(cfg: TrainCliConfig, default: tuple = (12, 24, 16)) -> tuple:
+    """Encoder depth: the `encoder_blocks` override, else `default` (the reference CAM++ 12,24,16)."""
+    return tuple(int(x) for x in cfg.encoder_blocks.split(",")) if cfg.encoder_blocks else default
 
 
 def spk_config(cfg: TrainCliConfig, n_classes: int):
@@ -173,6 +192,38 @@ def tsvad_config(cfg: TrainCliConfig):
         expand=cfg.expand,
         encoder_block_layers=blocks,
     )
+
+
+def tsvad3_config(cfg: TrainCliConfig):
+    """TrainCliConfig → TSVAD3Config, as the JAX CLI's _build_model does:
+    both CAM++ at the `encoder_blocks` depth."""
+    from ..models.tsvad import TSVADConfig
+    from ..models.tsvad3 import TSVAD3Config
+
+    blocks = _blocks(cfg)
+    base = TSVADConfig(
+        max_num_speaker=cfg.n_speakers if cfg.n_speakers > 2 else 4,
+        feat_dim=cfg.n_mels if cfg.n_mels != 23 else 80,
+        num_transformer_layer=cfg.n_layers,
+        num_attention_head=cfg.n_heads,
+        transformer_ffn_embed_dim=cfg.d_ff,
+        dropout=cfg.dropout,
+        sample_rate=cfg.sample_rate,
+        encoder_block_layers=blocks,
+    )
+    return TSVAD3Config(base=base, ts_len=cfg.ts_len, fuse_fbank_feat=cfg.fuse_fbank_feat,
+                        fuse_speaker_embedding_feat=cfg.fuse_speaker_embedding_feat, speaker_encoder_layers=blocks)
+
+
+def sond_config(cfg: TrainCliConfig):
+    """TrainCliConfig → SONDConfig, as the JAX CLI's _build_model does
+    (n_mels as it is, 192-d profiles, ResNet34 3,4,6,3 unless encoder_blocks)."""
+    from ..models.sond import SONDConfig
+
+    n = cfg.n_speakers if cfg.n_speakers > 2 else 4
+    return SONDConfig(max_speakers=n, max_set_size=min(n, 4), feat_dim=cfg.n_mels, spk_emb_dim=192,
+                      d_model=cfg.d_model, n_heads=cfg.n_heads, dropout=cfg.dropout,
+                      encoder_blocks=_blocks(cfg, (3, 4, 6, 3)))
 
 
 def streaming_config(cfg: TrainCliConfig):
@@ -212,27 +263,28 @@ def _load_config(path, overrides=()):
     return apply_overrides(cfg, list(overrides)) if overrides else cfg
 
 
-def _load_encoder(model, path: str) -> None:
-    """Put a pretrained speech encoder into model.speech_encoder: the
-    `export-encoder` npz (of the model's encoder type), or a wespeaker-named
-    CAM++ torch state dict."""
+def _load_encoder(model, path: str, attr: str = "speech_encoder") -> None:
+    """Put a pretrained speech encoder into `model.<attr>` (TS-VAD3 has a
+    `speaker_encoder` too): the `export-encoder` npz (of the module's
+    encoder type), or a wespeaker-named CAM++ torch state dict. The tensors
+    the module lacks (an embedding head TS-VAD does not use) are left out."""
     import torch
 
     from ..utils.convert import encoder_from_flax, load_encoder_npz
 
-    enc = model.speech_encoder
     if path.endswith(".npz"):
         meta, v = load_encoder_npz(path)
         sd = encoder_from_flax(meta.get("encoder", "campplus"), v["params"], v["batch_stats"])
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         sd = sd.get("state_dict", sd.get("model", sd))
+    enc = getattr(model, attr)
     want = enc.state_dict()
     missing = sorted(set(want) - set(sd))
     if missing:
         raise SystemExit(f"{path} lacks {len(missing)} tensors of the speech encoder, e.g. {missing[:3]}")
-    enc.load_state_dict({k: sd[k] for k in want})  # the embedding head is not used by TS-VAD
-    logging.info("loaded speech encoder from %s", path)
+    enc.load_state_dict({k: sd[k] for k in want})
+    logging.info("loaded an encoder from %s", path)
 
 
 def frontend_config(cfg: TrainCliConfig):
@@ -255,12 +307,24 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
         from ..models.streaming_tsvad import StreamingTSVADModel
 
         return StreamingTSVADModel(streaming_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "tsvad3":
+        from ..models.tsvad3 import TSVAD3Model
+
+        return TSVAD3Model(tsvad3_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "sond":
+        from ..models.sond import SONDModel
+
+        return SONDModel(sond_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
     if cfg.family == "spk":
         from ..models.spk_embed import SpeakerClassifier
 
         return SpeakerClassifier(spk_config(cfg, cfg.all_n_speakers), dtype=dtype, device=device, seed=cfg.seed)
     common = dict(d_model=cfg.d_model, n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_ff=cfg.d_ff, dropout=cfg.dropout,
                   frontend=frontend_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "eend_vc":
+        from ..models.eend_vc import EENDVCModel
+
+        return EENDVCModel(n_speakers=cfg.n_speakers, all_n_speakers=cfg.all_n_speakers, **common)
     if cfg.family == "eend":
         from ..models.eend import EENDModel
 
@@ -271,36 +335,61 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
                         encoder_type=cfg.encoder_type, conv_norm="group", remat=cfg.remat, **common)
 
 
+def _slots(model) -> int:
+    """Speaker slots of a windowed model (TS-VAD, streaming TS-VAD, TS-VAD3, SOND)."""
+    c = model.cfg
+    return c.max_speakers if hasattr(c, "max_speakers") else getattr(c, "base", c).max_num_speaker
+
+
 def _tsvad_data(args, cfg: TrainCliConfig, model):
-    """TS-VAD and streaming TS-VAD: (loss_fn, train iterator factory, valid
-    iterator factory, sizes). The datasets give the model's slot count; a
-    comma list of --train-dir trains on the corpora jointly."""
+    """TS-VAD, streaming TS-VAD, TS-VAD3 and SOND: (loss_fn, train iterator
+    factory, valid iterator factory, sizes). The datasets give the model's
+    slot count; a comma list of --train-dir trains on the corpora jointly
+    (TS-VAD3: with a parallel comma list of --target-audio-dir)."""
     from ..data.eend_dataset import ConcatChunkDataset
     from ..data.tsvad_dataset import TSVADChunkDataset, tsvad_batch_iterator
     from ..infer.embeddings import EmbeddingStore
-    from ..train.tasks import make_streaming_tsvad_loss, make_tsvad_loss
+    from ..train import tasks
 
-    if not args.emb_store:
-        raise SystemExit(f"train --family {cfg.family} needs --emb-store")
+    train_dirs = args.train_dir.split(",")
+    tads, vtad = [None] * len(train_dirs), None
     T = int(cfg.rs_len * 25)
-    if cfg.family == "tsvad_streaming":
+    if cfg.family == "tsvad3":
+        if not args.target_audio_dir:
+            raise SystemExit("train --family tsvad3 needs --target-audio-dir (prepare-targets' target_audio tree): "
+                             "it embeds enrollment waveforms, not stored embeddings")
+        if args.valid_dir and not args.valid_target_audio_dir:
+            raise SystemExit("train --family tsvad3 --valid-dir needs --valid-target-audio-dir")
+        tads, vtad = args.target_audio_dir.split(","), args.valid_target_audio_dir
+        if len(tads) != len(train_dirs):
+            raise SystemExit(f"{len(tads)} --target-audio-dir trees for {len(train_dirs)} --train-dir corpora")
+        if args.encoder_ckpt:  # the same pretrained CAM++ on both sides, as in JAX
+            _load_encoder(model, args.encoder_ckpt)
+            _load_encoder(model, args.encoder_ckpt, "speaker_encoder")
+        loss_fn = tasks.make_tsvad3_loss(T, cfg.freeze_encoder)
+    elif not args.emb_store:
+        raise SystemExit(f"train --family {cfg.family} needs --emb-store")
+    elif cfg.family == "tsvad_streaming":
         if args.encoder_ckpt:
             raise SystemExit("tsvad_streaming has its own conv front-end and no CAM++: drop --encoder-ckpt")
-        loss_fn = make_streaming_tsvad_loss(T)
+        loss_fn = tasks.make_streaming_tsvad_loss(T)
+    elif cfg.family == "sond":
+        loss_fn = tasks.make_sond_loss_from_audio(sample_rate=cfg.sample_rate)
     else:
         if args.encoder_ckpt:
             _load_encoder(model, args.encoder_ckpt)
-        loss_fn = make_tsvad_loss(T, cfg.freeze_encoder)
-    store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
-    common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=model.cfg.max_num_speaker,
-                  enhancer=cfg.enhancer or None)
+        loss_fn = tasks.make_tsvad_loss(T, cfg.freeze_encoder)
+    store = EmbeddingStore.load(args.emb_store) if args.emb_store else None  # a comma list merges stores
+    common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=_slots(model), enhancer=cfg.enhancer or None,
+                  enroll_len_s=cfg.ts_len)
     dss = [TSVADChunkDataset(d, store, segment_shift=cfg.segment_shift, is_train=True, seed=cfg.seed,
-                             noise_dir=args.noise_dir, rir_dir=args.rir_dir, **common)
-           for d in args.train_dir.split(",")]
+                             noise_dir=args.noise_dir, rir_dir=args.rir_dir, target_audio_dir=t, **common)
+           for d, t in zip(train_dirs, tads)]
     train_ds = dss[0] if len(dss) == 1 else ConcatChunkDataset(dss)
     valid_ds = None
     if args.valid_dir:
-        valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=cfg.rs_len, is_train=False, **common)
+        valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=cfg.rs_len, is_train=False,
+                                     target_audio_dir=vtad, **common)
     return (
         loss_fn,
         lambda ep: tsvad_batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
@@ -310,11 +399,12 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
 
 
 def _eend_data(args, cfg: TrainCliConfig):
-    """EEND / EEND-EDA: (cfg with the batch clamped to the chunks there are,
+    """EEND / EEND-EDA / EEND-VC: (cfg with the batch clamped to the chunks
+    there are and, for EEND-VC, all_n_speakers from the corpus when 0,
     loss_fn, train iterator factory, valid iterator factory, sizes); a comma
     list of --train-dir trains on the corpora jointly."""
     from ..data.eend_dataset import ConcatChunkDataset, EendChunkDataset, batch_iterator
-    from ..train.tasks import make_eda_loss, make_eend_loss
+    from ..train import tasks
 
     fe = frontend_config(cfg)
     dss = [EendChunkDataset(d, cfg.chunk_frames, fe, cfg.n_speakers) for d in args.train_dir.split(",")]
@@ -327,11 +417,22 @@ def _eend_data(args, cfg: TrainCliConfig):
     if cfg.batch_size > n_chunks:
         logging.warning("batch_size %d > %d available chunks; clamping", cfg.batch_size, n_chunks)
         cfg = dataclasses.replace(cfg, batch_size=n_chunks)
+    if cfg.family == "eend_vc":
+        if cfg.all_n_speakers == 0:
+            cfg = dataclasses.replace(cfg, all_n_speakers=len(train_ds.all_speakers))
+        if valid_ds:
+            # the validation speaker CE is scored against the training table: a
+            # valid speaker takes its training row by name, an unseen one −1
+            # (left out), not its index in the valid corpus's own list
+            table = {s: i for i, s in enumerate(train_ds.all_speakers)}
+            valid_ds.spk_to_gid = {s: table.get(s, -1) for s in valid_ds.all_speakers}
+    loss_fn = {"eend": tasks.make_eend_loss, "eend_eda": tasks.make_eda_loss,
+               "eend_vc": tasks.make_eend_vc_loss}[cfg.family]()
     # the iterator drops partial batches, so a small dev set gets a smaller batch
     vbs = max(1, min(cfg.batch_size, len(valid_ds.chunks))) if valid_ds else 0
     return (
         cfg,
-        make_eend_loss() if cfg.family == "eend" else make_eda_loss(),
+        loss_fn,
         lambda ep: batch_iterator(train_ds, cfg.batch_size, True, cfg.seed, epoch=ep),
         (lambda: batch_iterator(valid_ds, vbs, False)) if valid_ds else None,
         (n_chunks, len(valid_ds.chunks) if valid_ds else 0),
@@ -369,15 +470,12 @@ def cmd_train(args) -> int:
 
     cfg = _cli_config(args, load_json(TrainCliConfig, args.config) if args.config else TrainCliConfig())
     dev = resolve_device(args.device)
-    if cfg.family == "spk":  # the class count comes from the corpus
-        cfg, loss_fn, make_train, make_valid, sizes = _spk_data(args, cfg)
-        model = build_model(cfg, dev)
-    elif cfg.family in TSVAD_FAMILIES:
+    if cfg.family in TSVAD_FAMILIES:
         model = build_model(cfg, dev)
         loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
-    else:
+    else:  # spk's class count and eend_vc's speaker table come from the corpus
+        cfg, loss_fn, make_train, make_valid, sizes = (_spk_data if cfg.family == "spk" else _eend_data)(args, cfg)
         model = build_model(cfg, dev)
-        cfg, loss_fn, make_train, make_valid, sizes = _eend_data(args, cfg)
     tcfg = TrainerConfig(
         optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, schedule=cfg.schedule, d_model=cfg.d_model,
         warmup_steps=cfg.warmup_steps, total_steps=cfg.num_steps, grad_clip_norm=cfg.grad_clip_norm,
@@ -431,26 +529,67 @@ def _model_from_exp_dir(args, dev):
     return model, cfg
 
 
-def _tsvad_probs(args, model, rs_len: float):
-    """Overlap-voted TS-VAD probabilities → ({rec: (T, S)}, frame seconds,
-    {rec: speaker names}); a streaming model decodes each window chunk by chunk."""
+def _tsvad_probs(args, model, cfg: TrainCliConfig, rs_len: float):
+    """Overlap-voted probabilities of a windowed family → ({rec: (T, S)},
+    frame seconds, {rec: speaker names}): TS-VAD and streaming TS-VAD (a
+    streaming model decodes each window chunk by chunk) from stored
+    embeddings, SOND from stored profiles (powerset posteriors folded to
+    speakers), TS-VAD3 from enrollment waveforms. As in JAX, TS-VAD3's RTTM
+    names the speakers by slot."""
     from ..data.tsvad_dataset import TSVADChunkDataset
-    from ..infer.chunked import make_streaming_window_predict, make_tsvad_predict, tsvad_infer_dataset
+    from ..infer import chunked
     from ..infer.embeddings import EmbeddingStore
-    from ..models.streaming_tsvad import StreamingTSVADModel
 
-    if not args.emb_store:
-        raise SystemExit("TS-VAD inference needs --emb-store")
-    cfg = model.cfg
-    store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
-    ds = TSVADChunkDataset(
-        args.data_dir, store, rs_len=rs_len, segment_shift=args.infer_shift,
-        max_speakers=cfg.max_num_speaker, rate=cfg.sample_rate, label_rate=cfg.label_rate,
-    )
-    T = int(rs_len * cfg.label_rate)
-    make = make_streaming_window_predict if isinstance(model, StreamingTSVADModel) else make_tsvad_predict
-    probs = tsvad_infer_dataset(make(model, T), ds, batch_size=BATCH_SIZE)
-    return probs, 1.0 / cfg.label_rate, ds.rec_speakers  # real speaker names in the RTTM
+    store, tad, emb_key = None, None, "target_embs"
+    if cfg.family == "tsvad3":
+        if not args.target_audio_dir:
+            raise SystemExit("tsvad3 inference needs --target-audio-dir (prepare-targets' target_audio tree)")
+        tad, emb_key = args.target_audio_dir, "enroll_audio"
+    elif not args.emb_store:
+        raise SystemExit(f"{cfg.family} inference needs --emb-store")
+    else:
+        store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
+    mc = getattr(model.cfg, "base", model.cfg)  # SONDConfig has no rates: the run's, and 25 Hz labels
+    label_rate = getattr(mc, "label_rate", 25)
+    ds = TSVADChunkDataset(args.data_dir, store, rs_len=rs_len, segment_shift=args.infer_shift,
+                           max_speakers=_slots(model), rate=getattr(mc, "sample_rate", cfg.sample_rate),
+                           label_rate=label_rate, target_audio_dir=tad, enroll_len_s=cfg.ts_len)
+    T = int(rs_len * label_rate)
+    if cfg.family == "sond":
+        predict = chunked.make_sond_predict(model, cfg.sample_rate)
+    elif cfg.family == "tsvad_streaming":
+        predict = chunked.make_streaming_window_predict(model, T)
+    else:
+        predict = chunked.make_tsvad_predict(model, T)
+    probs = chunked.tsvad_infer_dataset(predict, ds, batch_size=BATCH_SIZE, emb_key=emb_key)
+    return probs, 1.0 / label_rate, {} if cfg.family == "tsvad3" else ds.rec_speakers  # real speaker names
+
+
+def _eend_vc_probs(args, model, cfg: TrainCliConfig):
+    """EEND-VC: per recording, chunk posteriors and vectors → constrained
+    AHC → stitched probabilities ({rec: (T, k)}, frame seconds, {}).
+    --num-spks -1 takes each recording's speaker count from --ref (else the
+    data dir's rttm), k > 0 fixes it, 0 cuts at the AHC distance threshold."""
+    from ..data.kaldi_io import KaldiData
+    from ..data.rttm import read_rttm_by_rec
+    from ..infer.eend_vc import eend_vc_infer_recording, make_eend_vc_predict
+
+    fe = frontend_config(cfg)
+    kd = KaldiData(args.data_dir)
+    oracle = {}
+    if args.num_spks == -1:
+        src = args.ref or os.path.join(args.data_dir, "rttm")
+        oracle = {rec: len({t.speaker for t in ts}) for rec, ts in read_rttm_by_rec(src).items()}
+    predict = make_eend_vc_predict(model)
+    probs = {}
+    for rec in sorted(kd.wavs):
+        audio, rate = kd.load_wav(rec)
+        if rate != fe.sample_rate:
+            raise ValueError(f"{rec}: {rate} Hz audio, the model's front-end wants {fe.sample_rate} Hz")
+        nk = oracle.get(rec) if args.num_spks == -1 else (args.num_spks or None)
+        probs[rec] = eend_vc_infer_recording(predict, audio, fe, cfg.chunk_frames, n_clusters=nk,
+                                             sil_spk_th=args.sil_spk_th)
+    return probs, fe.frame_shift * fe.subsampling / fe.sample_rate, {}
 
 
 def _eend_probs(args, model, cfg: TrainCliConfig):
@@ -489,7 +628,9 @@ def cmd_infer(args) -> int:
         cfg, rs_len = TrainCliConfig(family="tsvad"), 4.0
         logging.info("loaded %s on %s (%s)", args.params, model.device, model.dtype)
     if cfg.family in TSVAD_FAMILIES:
-        probs, fs, spk_names = _tsvad_probs(args, model, args.rs_len or rs_len)
+        probs, fs, spk_names = _tsvad_probs(args, model, cfg, args.rs_len or rs_len)
+    elif cfg.family == "eend_vc":
+        probs, fs, spk_names = _eend_vc_probs(args, model, cfg)
     else:
         probs, fs, spk_names = _eend_probs(args, model, cfg)
 
@@ -750,9 +891,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Kaldi data dir (a comma list trains jointly, except for spk, which needs utt2spk)")
     t.add_argument("--valid-dir")
     t.add_argument("--exp-dir", required=True)
-    t.add_argument("--emb-store", help="tsvad, tsvad_streaming: target-speaker embedding npz (comma list merges)")
-    t.add_argument("--encoder-ckpt", help="tsvad: pretrained speech encoder, an export-encoder .npz or a "
-                                          "wespeaker CAM++ torch state dict")
+    t.add_argument("--emb-store", help="tsvad, tsvad_streaming, sond: target-speaker embedding npz "
+                                       "(comma list merges)")
+    t.add_argument("--target-audio-dir", help="tsvad3: comma list of target_audio trees (parallel to --train-dir)")
+    t.add_argument("--valid-target-audio-dir", help="tsvad3: target_audio tree for --valid-dir")
+    t.add_argument("--encoder-ckpt", help="tsvad, tsvad3: pretrained speech encoder, an export-encoder .npz or a "
+                                          "wespeaker CAM++ torch state dict (tsvad3: both CAM++)")
     t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation")
     t.add_argument("--rir-dir", help="Kaldi dir of RIR wavs for reverberation")
     t.add_argument("--max-to-keep", type=int, default=5)
@@ -768,7 +912,13 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--set", action="append", default=[],
                    help="key=value override of the TSVADConfig (--params) or of the run's TrainCliConfig (--exp-dir)")
     i.add_argument("--data-dir", required=True)
-    i.add_argument("--emb-store", help="tsvad, tsvad_streaming: target-speaker embedding npz (comma list merges)")
+    i.add_argument("--emb-store", help="tsvad, tsvad_streaming, sond: target-speaker embedding npz "
+                                       "(comma list merges)")
+    i.add_argument("--target-audio-dir", help="tsvad3: target_audio tree for enrollment waveforms")
+    i.add_argument("--num-spks", type=int, default=0,
+                   help="eend_vc: fixed cluster count (>0), -1 = oracle per-recording count from --ref "
+                        "(reference est_nspk mode), 0 = distance-threshold AHC")
+    i.add_argument("--sil-spk-th", type=float, default=0.05, help="eend_vc: silent-channel mean-activity threshold")
     i.add_argument("--params", help=_PARAMS_HELP)
     i.add_argument("--exp-dir", help="a `train` run: restore its best (else latest) checkpoint")
     i.add_argument("--step", type=int, help="with --exp-dir: restore this step")

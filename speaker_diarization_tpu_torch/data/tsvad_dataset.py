@@ -12,7 +12,11 @@ Counterpart of speaker_diarization_tpu/data/tsvad_dataset.py (reference
   train, the mean row at eval;
 - at train, with probability aug_prob: reverb by a random RIR of `rir_dir`
   (half the time) and additive noise from `noise_dir` at 5-20 dB SNR;
-- labels come from the corpus RTTM at 25 Hz.
+- labels come from the corpus RTTM at 25 Hz;
+- with `target_audio_dir` (prepare-targets' target_audio/<rec>/<spk>.wav
+  tree), items also carry `enroll_audio` (S, enroll_len_s·rate): each
+  speaker's enrollment waveform for TS-VAD3. `emb_store` may then be None
+  (zero target embeddings).
 
 Each item's randomness is a `random.Random` seeded from (seed, epoch,
 index), drawn in the JAX package's order, so one seed gives the JAX
@@ -59,6 +63,8 @@ class TSVADChunkDataset:
         aug_prob: float = 0.5,
         seed: int = 0,
         enhancer=None,
+        target_audio_dir: Optional[str] = None,
+        enroll_len_s: float = 3.0,
     ):
         if enhancer is not None:
             raise NotImplementedError("the speech-enhancer hooks are not ported yet (ROADMAP item 10)")
@@ -74,6 +80,8 @@ class TSVADChunkDataset:
         self._epoch = 0
         self._noises = kaldi_io.load_scp(os.path.join(noise_dir, "wav.scp")) if noise_dir else None
         self._rirs = kaldi_io.load_scp(os.path.join(rir_dir, "wav.scp")) if rir_dir else None
+        self.target_audio_dir = target_audio_dir
+        self.enroll_samples = int(enroll_len_s * rate)
 
         rttm_path = rttm_path or os.path.join(data_dir, "rttm")
         self.turns = read_rttm_by_rec(rttm_path)
@@ -117,6 +125,8 @@ class TSVADChunkDataset:
 
     # ------------------------------------------------------------------
     def _target_embedding(self, rng: random.Random, rec: str, spk: str) -> np.ndarray:
+        if self.embs is None:  # TS-VAD3 from enrollment waveforms alone
+            return np.zeros((192,), np.float32)
         m = self.embs.get(rec, spk) if self.embs.has(rec, spk) else None
         if m is None or len(m) == 0:
             # fall back to any recording of this speaker with usable windows
@@ -131,6 +141,8 @@ class TSVADChunkDataset:
         return m.mean(axis=0)
 
     def _distractor_embedding(self, rng: random.Random, exclude: List[str]) -> Optional[np.ndarray]:
+        if self.embs is None:
+            return None
         pool = [s for s in self.all_speakers if s not in exclude]
         if not pool:
             return None
@@ -192,7 +204,7 @@ class TSVADChunkDataset:
         S = self.max_speakers
         labels = np.zeros((T, S), np.float32)
         labels[:, : len(speakers)] = act
-        embs = np.zeros((S, self.embs.dim), np.float32)
+        embs = np.zeros((S, self.embs.dim if self.embs is not None else 192), np.float32)
         for i in range(S):
             if i < len(speakers):
                 embs[i] = self._target_embedding(rng, ch.rec, speakers[i])
@@ -200,7 +212,7 @@ class TSVADChunkDataset:
                 d = self._distractor_embedding(rng, speakers)
                 if d is not None:
                     embs[i] = d
-        return dict(
+        item = dict(
             audio=audio.astype(np.float32),
             target_embs=embs,
             labels=labels,
@@ -208,6 +220,29 @@ class TSVADChunkDataset:
             start_frame=ch.start_frame,
             speakers=speakers,
         )
+        if self.target_audio_dir is not None:  # drawn after every other draw of the item, as in JAX
+            item["enroll_audio"] = self._enroll_audio(rng, ch.rec, speakers)
+        return item
+
+    def _enroll_audio(self, rng: random.Random, rec: str, speakers: List[str]) -> np.ndarray:
+        """(max_speakers, enroll_len_s·rate) enrollment crops from
+        prepare-targets' overlap-free target wavs (a random crop at train,
+        the start at eval), zero-padded; zeros for absent speaker slots."""
+        out = np.zeros((self.max_speakers, self.enroll_samples), np.float32)
+        for i, spk in enumerate(speakers[: self.max_speakers]):
+            path = os.path.join(self.target_audio_dir, rec, f"{spk}.wav")
+            if not os.path.exists(path):
+                continue
+            wav, rate = load_wav_maybe_piped(path)
+            if rate != self.rate:
+                raise ValueError(f"{path}: sample rate {rate} != dataset rate {self.rate}")
+            if wav.ndim > 1:
+                wav = wav[:, 0]
+            if len(wav) > self.enroll_samples:
+                st = rng.randrange(len(wav) - self.enroll_samples) if self.is_train else 0
+                wav = wav[st : st + self.enroll_samples]
+            out[i, : len(wav)] = wav
+        return out
 
 
 def tsvad_batch_iterator(
@@ -218,7 +253,8 @@ def tsvad_batch_iterator(
     drop_last: bool = True,
     epoch: int = 0,
 ) -> Iterator[dict]:
-    """Batches of stacked numpy items {audio, target_embs, labels} in the
+    """Batches of stacked numpy items {audio, target_embs, labels[,
+    enroll_audio]} in the
     JAX package's order (a numpy shuffle seeded with seed + epoch). A
     ConcatChunkDataset of several corpora has no set_epoch: its members keep
     epoch 0's augmentation draws, as in the JAX package."""
@@ -231,8 +267,11 @@ def tsvad_batch_iterator(
     stop = n - (n % batch_size) if drop_last else n
     for i in range(0, stop, batch_size):
         items = [dataset[int(j)] for j in order[i : i + batch_size]]
-        yield dict(
+        batch = dict(
             audio=np.stack([it["audio"] for it in items]),
             target_embs=np.stack([it["target_embs"] for it in items]),
             labels=np.stack([it["labels"] for it in items]),
         )
+        if "enroll_audio" in items[0]:
+            batch["enroll_audio"] = np.stack([it["enroll_audio"] for it in items])
+        yield batch

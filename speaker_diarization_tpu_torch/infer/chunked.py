@@ -7,9 +7,11 @@ Counterpart of speaker_diarization_tpu/infer/chunked.py:
   masked, per-chunk probabilities concatenated over the recording;
 - `tsvad_infer_dataset`: overlapped TS-VAD windows with per-frame
   probability voting (reference ts_vad2/model.py:957-968 + infer.py:86-94).
-`make_eend_predict` / `make_tsvad_predict` wrap a model as the predictor;
+`make_eend_predict` / `make_tsvad_predict` wrap a model as the predictor
+(TS-VAD3 takes enrollment waveforms through the latter);
 `make_streaming_window_predict` decodes each TS-VAD window chunk by chunk
-through a streaming model's caches.
+through a streaming model's caches; `make_sond_predict` folds SOND's
+powerset posteriors back to per-speaker probabilities on the 25 Hz grid.
 """
 
 from __future__ import annotations
@@ -184,5 +186,32 @@ def make_streaming_window_predict(model, n_label_frames: int) -> Callable[[np.nd
         a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
         e = torch.from_numpy(np.ascontiguousarray(embs, np.float32)).to(dev)
         return torch.sigmoid(streaming_window_logits(model, a, e, n_label_frames)).cpu().numpy()
+
+    return predict
+
+
+def sond_probabilities(model, audio: torch.Tensor, embs: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """SOND's per-speaker probabilities (B, T25, N_spk) from audio (B, N)
+    and profiles (B, N_spk, D) on the device: kaldi fbank (K1 on CUDA),
+    powerset softmax times the class → speakers mapping, each 12.5 Hz frame
+    (ResNet34's ×8) repeated onto the 25 Hz label grid."""
+    from ..ops import features as F
+    from ..ops.powerset import powerset_mapping
+
+    c = model.cfg
+    mapping = torch.from_numpy(powerset_mapping(c.max_speakers, c.max_set_size)).to(audio.device)
+    logits = model(F.kaldi_fbank_auto(audio, sample_rate=sample_rate, num_mel_bins=c.feat_dim, mean_norm=True), embs)
+    return (torch.softmax(logits, dim=-1) @ mapping).repeat_interleave(2, dim=1)
+
+
+def make_sond_predict(model, sample_rate: int) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
+    """(audio (B, N), profiles (B, N_spk, D)) numpy → `sond_probabilities` numpy, on the model's device."""
+    dev = model.device
+
+    @torch.no_grad()
+    def predict(audio: np.ndarray, embs: np.ndarray) -> np.ndarray:
+        a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
+        e = torch.from_numpy(np.ascontiguousarray(embs, np.float32)).to(dev)
+        return sond_probabilities(model, a, e, sample_rate).cpu().numpy()
 
     return predict

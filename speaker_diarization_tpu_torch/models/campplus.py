@@ -190,6 +190,7 @@ class CAMPPlus(nn.Module):
 
     mode 'frames': (B, ceil(T/2), 512) 50 Hz features (TS-VAD speech encoder).
     mode 'embedding': (B, embedding_size) x-vector; needs with_dense=True.
+    mode 'both': (embedding, frames) from one pass; needs with_dense=True.
     The TS-VAD speech encoder is built with with_dense=False, matching the
     JAX model, whose frames-only encoder has no dense layer. `remat`
     recomputes each dense layer in the backward pass (TS-VAD's
@@ -240,11 +241,13 @@ class CAMPPlus(nn.Module):
             h = mod(h)
         return h
 
-    def forward(self, x: torch.Tensor, mode: Literal["frames", "embedding"] = "embedding") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: Literal["frames", "embedding", "both"] = "embedding"):
         h = self.frames(x)
         if mode == "frames":
             return h.transpose(1, 2)  # (B, T/2, 512)
         if not self.with_dense:
-            raise ValueError("embedding mode needs CAMPPlus(with_dense=True)")
-        e = stats_pool(h.transpose(1, 2).float())  # (B, 1024)
-        return self.xvector.dense(e.to(x.dtype))
+            raise ValueError(f"{mode} mode needs CAMPPlus(with_dense=True)")
+        e = self.xvector.dense(stats_pool(h.transpose(1, 2).float()).to(x.dtype))  # (B, 192)
+        # 'both': the utterance embedding and the frames of one pass (the
+        # TS-VAD3 speaker encoder, reference ts_vad3/model.py:964-968)
+        return (e, h.transpose(1, 2)) if mode == "both" else e

@@ -4,10 +4,13 @@ Counterpart of speaker_diarization_tpu/train/tasks.py: EEND PIT-BCE
 (`make_eend_loss`, tasks.py:20-37), EEND-EDA PIT + attractor existence
 (`make_eda_loss`, tasks.py:40-77), TS-VAD per-speaker BCE
 (`make_tsvad_loss`, tasks.py:241-271), streaming TS-VAD's BCE on the
-chunk-masked forward (`make_streaming_tsvad_loss`, tasks.py:335-357) and the
-speaker encoder's AAM-softmax
-cross-entropy (`make_spk_loss`, tasks.py:430-456). The other families'
-losses come with their models.
+chunk-masked forward (`make_streaming_tsvad_loss`, tasks.py:335-357), the
+speaker encoder's AAM-softmax cross-entropy (`make_spk_loss`,
+tasks.py:430-456), TS-VAD3's BCE from enrollment waveforms
+(`make_tsvad3_loss`, tasks.py:274-297), SOND's powerset CE from raw audio
+(`make_sond_loss_from_audio`, tasks.py:400-427) and EEND-VC's PIT plus
+speaker-table loss (`make_eend_vc_loss`, tasks.py:106-143). The other
+families' losses come with their models.
 """
 
 from __future__ import annotations
@@ -100,5 +103,65 @@ def make_spk_loss(sample_rate: int = 16000):
         loss = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None]).mean()
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss, {"acc": acc.detach()}
+
+    return loss_fn
+
+
+def make_tsvad3_loss(n_label_frames: int, freeze_speech_encoder: bool = False):
+    """loss_fn for TSVAD3Model: the enrollment waveforms (batch
+    'enroll_audio' (B, S, Nts), else 'target_embs') are embedded by the
+    model's speaker encoder; per-speaker BCE as TS-VAD."""
+
+    def loss_fn(model, batch, generator, train):
+        targets = batch["enroll_audio"] if "enroll_audio" in batch else batch["target_embs"]
+        logits = model(batch["audio"], targets, n_label_frames,
+                       freeze_speech_encoder=freeze_speech_encoder and train, generator=generator)
+        loss = L.standard_bce(logits, batch["labels"])
+        stats = M.diarization_error_stats(logits, batch["labels"])
+        return loss, {"frame_der": M.der_from_stats(stats)}
+
+    return loss_fn
+
+
+def make_sond_loss_from_audio(sample_rate: int = 16000):
+    """loss_fn for SONDModel over TS-VAD chunk batches: the 100 Hz kaldi
+    fbank from the raw audio on the device (K1 for a CUDA batch), the
+    target-speaker embeddings as the profile inventory, and the 25 Hz labels
+    taken every other frame to the model's 12.5 Hz (ResNet34's ×8). The
+    fbank is padded or cropped to 8·T_labels, so the ×8 encoder (ceil
+    rounding) gives exactly one frame per label."""
+    from ..models.sond import sond_loss
+
+    def loss_fn(model, batch, generator, train):
+        fbank = F.kaldi_fbank_auto(batch["audio"], sample_rate=sample_rate, num_mel_bins=model.cfg.feat_dim,
+                                   mean_norm=True)
+        labels = batch["labels"][:, ::2]  # 25 Hz → 12.5 Hz
+        t_fb = 8 * labels.shape[1]
+        if fbank.shape[1] < t_fb:
+            fbank = torch.nn.functional.pad(fbank, (0, 0, 0, t_fb - fbank.shape[1]))
+        return sond_loss(model, fbank[:, :t_fb], batch["target_embs"], labels, generator)
+
+    return loss_fn
+
+
+def make_eend_vc_loss(spk_loss_weight: float = 0.03):
+    """loss_fn for EENDVCModel: (1 − w)·PIT-BCE + w·speaker CE (reference
+    models_vector_cluster.py:24-72 and 159-192; train_vector_cluster.py:
+    222-235, w = spk_loss_ratio 0.03). Each channel that carries speech is
+    classified against the global speaker table by its id under the best
+    permutation; channels without speech or with id −1 are left out."""
+
+    def loss_fn(model, batch, generator, train):
+        fm = batch["frame_mask"]
+        logits, vecs = model(batch["audio"], fm, generator)
+        pit, labels_perm, best_perm = L.pit_loss(logits, batch["labels"], fm, batch.get("spk_mask"))
+        gids = torch.gather(batch["spk_ids"].long(), -1, best_perm.long())  # (B, S)
+        valid = ((labels_perm.sum(1) > 0) & (gids >= 0)).float()
+        logp = torch.log_softmax(model.spk_distance_logits(vecs), dim=-1)
+        picked = logp.gather(-1, torch.clamp_min(gids, 0)[..., None])[..., 0]
+        spk = -(picked * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+        stats = M.diarization_error_stats(logits, labels_perm, fm)
+        total = (1.0 - spk_loss_weight) * pit + spk_loss_weight * spk
+        return total, {"pit_loss": pit.detach(), "spk_loss": spk.detach(), "frame_der": M.der_from_stats(stats)}
 
     return loss_fn

@@ -42,6 +42,15 @@ above and two more:
       (Cin, Cout, K) flipped in time (models/tsvad.ConvTransposeSame)
   GroupNorm scale/bias                   → weight/bias
 
+`sond_from_flax` / `sond_to_flax`, `tsvad3_from_flax` / `tsvad3_to_flax`
+and `eend_vc_from_flax` / `eend_vc_to_flax` map the JAX SONDModel,
+TSVAD3Model and EENDVCModel: SOND by name (its depthwise FSMN kernels
+(k, 1, d) → Conv1d weight (d, 1, k)) with vanilla CD layers as transformer
+layers; TS-VAD3 as TS-VAD plus its speaker-side CAM++ and the AttFuse
+projections; EEND-VC as EEND plus the `vec_head_i` Linears, the speaker
+table (nn.Embed `embedding` → `spk_table.weight`) and the scalars `alpha`
+and `beta`.
+
 `conformer`, the ECAPA/ResNet34/SimAM speech encoders, the TS-VAD
 `conformer` and BiLSTM (`lstm_fwd`/`lstm_bwd` for flax's
 OptimizedLSTMCell_0/_1) backends and the upsampling `speech_down` go
@@ -151,7 +160,7 @@ def campplus_from_flax(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
 def _backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     for layer, lp in params.items():  # layer_i
-        base = f"{prefix}.{layer}"
+        base = f"{prefix}.{layer}" if prefix else layer
         att = lp["MultiHeadDotProductAttention_0"]
         for n in ("query", "key", "value"):
             k = att[n]["kernel"]  # (D, H, Dh)
@@ -651,4 +660,104 @@ def eend_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
         params["encoder"].update(enc["params"])
         if enc["batch_stats"]:
             out["batch_stats"] = {"encoder": enc["batch_stats"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SOND, TS-VAD3, EEND-VC
+# ---------------------------------------------------------------------------
+
+_VANILLA = "MultiHeadDotProductAttention_0"  # a flax TransformerEncoderLayer's attention
+
+
+def sond_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX SONDModel variables ({'params', 'batch_stats'}) → SONDModel
+    state_dict; the modules map by name, vanilla CD layers as transformer
+    layers."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    vanilla = {name: sub for name, sub in p.items() if _VANILLA in sub}
+    sd = named_from_flax({name: sub for name, sub in p.items() if name not in vanilla}, s)
+    sd.update(_backend_from_flax(vanilla, ""))
+    return sd
+
+
+def sond_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """SONDModel state_dict → JAX variables as numpy; the inverse of `sond_from_flax`."""
+    vanilla = {n.split(".")[0] for n in state_dict if n.split(".")[1:2] == ["attn"]}
+    out = {"params": {}, "batch_stats": {}}
+    named: Dict[str, torch.Tensor] = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        if parts[0] in vanilla:
+            path, w = _layer_to_flax(parts, t.detach().cpu().float().numpy(), num_heads)
+            _put(out["params"], path, w)
+        else:
+            named[name] = t
+    for coll, tree in named_to_flax(named).items():
+        out[coll].update(tree)
+    return out
+
+
+_TSVAD3_EXTRA = ("speaker_encoder", "fuse_fbank_module", "fuse_frame_module")
+
+
+def tsvad3_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX TSVAD3Model variables → TSVAD3Model state_dict: TS-VAD's modules,
+    the speaker-side CAM++ with its dense head, and the AttFuse projections."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = tsvad_from_flax(variables)
+    if "speaker_encoder" in p:
+        enc = campplus_from_flax(p["speaker_encoder"], s["speaker_encoder"])
+        sd.update({f"speaker_encoder.{k}": v for k, v in enc.items()})
+    sd.update(named_from_flax({name: p[name] for name in _TSVAD3_EXTRA[1:] if name in p}, {}))
+    return sd
+
+
+def tsvad3_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """TSVAD3Model state_dict → JAX variables as numpy; the inverse of `tsvad3_from_flax`."""
+    parts: Dict[str, Dict[str, torch.Tensor]] = {}
+    rest = {}
+    for name, t in state_dict.items():
+        top = name.split(".")[0]
+        if top in _TSVAD3_EXTRA:
+            parts.setdefault(top, {})[name[len(top) + 1:]] = t
+        else:
+            rest[name] = t
+    out = tsvad_to_flax(rest, num_heads)
+    for top, sd in parts.items():
+        tree = campplus_to_flax(sd) if top == "speaker_encoder" else named_to_flax(sd)
+        for coll in ("params", "batch_stats"):
+            if tree[coll]:
+                out[coll][top] = tree[coll]
+    return out
+
+
+def eend_vc_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX EENDVCModel variables ({'params'}) → EENDVCModel state_dict."""
+    p = variables["params"]
+    sd = eend_from_flax(variables)
+    for name, sub in p.items():
+        if name.startswith("vec_head_"):
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(sub["kernel"].T), _t(sub["bias"])
+    if "spk_table" in p:
+        sd["spk_table.weight"] = _t(p["spk_table"]["embedding"])
+        sd["alpha"], sd["beta"] = _t(p["alpha"]), _t(p["beta"])
+    return sd
+
+
+def eend_vc_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """EENDVCModel state_dict → JAX variables as numpy; the inverse of `eend_vc_from_flax`."""
+    own = ("spk_table", "alpha", "beta")
+    out = eend_to_flax({k: v for k, v in state_dict.items()
+                        if k.split(".")[0] not in own and not k.startswith("vec_head_")}, num_heads)
+    params = out["params"]
+    for name, t in state_dict.items():
+        w = t.detach().cpu().float().numpy()
+        top, leaf = name.split(".")[0], name.split(".")[-1]
+        if top.startswith("vec_head_"):
+            _put(params, (top, "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w)
+        elif top == "spk_table":
+            _put(params, ("spk_table", "embedding"), w)
+        elif top in ("alpha", "beta"):
+            params[top] = np.asarray(w, np.float32)
     return out

@@ -32,9 +32,9 @@ from speaker_diarization_tpu_torch.score import cder
 torch.set_num_threads(1)
 
 # TrainCliConfig fields of the JAX CLI that belong to families the port has not
-# ported yet: SSND's mixer, TS-VAD3's enrollment, the enhancer's rate, the mesh
+# ported yet: SSND's mixer, the enhancer's rate, the mesh
 JAX_ONLY = {"ssnd_overlap_prob", "ssnd_sil_scale", "ssnd_arcface_weight", "ssnd_real_ratio", "enhance_prob",
-            "ts_len", "fuse_fbank_feat", "fuse_speaker_embedding_feat", "n_data"}
+            "n_data"}
 SETS = [[], ["family=tsvad", "remat=true", "d_ff=512", "learning_rate=1e-3", "encoder_blocks=12,24,16"],
         ["encoder_type=conformer", "bf16=true", "rs_len=4.0", "speech_encoder_type=ecapa"]]
 

@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no JAX package, no silent CPU fallback."""
+"""The port stands alone: no JAX, no JAX package, no scikit-learn (the GPU
+hosts have none), no silent CPU fallback."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "speaker_diarization_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "speaker_diarization_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "speaker_diarization_tpu", "sklearn"}
 TINY = dict(
     encoder_block_layers=(1, 1), transformer_embed_dim=32, transformer_ffn_embed_dim=64,
     num_attention_head=2, speaker_embed_dim=16, num_transformer_layer=1,
