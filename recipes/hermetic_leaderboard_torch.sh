@@ -5,14 +5,19 @@
 # corpus, encoder.npz and the embedding stores).
 #
 #   families the port runs (one training + inference stage each):
-#     eend       EEND on the shared 3-speaker corpus
-#     tsvad_rev  TS-VAD trained with image-source RIR reverberation
-#     ecapa      TS-VAD with a scratch-initialised ECAPA-TDNN speech encoder
-#     sond       powerset SOND (ConvEncoder profiles + SANM CD scorer)
-#     tsvad3     TS-VAD with online enrollment-waveform embeddings
+#     m2f        EEND-M2F set prediction (true ×10 backbone)
+#     fs_eend    frame-streaming online EEND
 #     eend_vc    chunked EEND + speaker-vector clustering
-#   every other family of the JAX recipe prints "not ported" and is skipped;
-#   each is added here as its port lands (ROADMAP item 3).
+#     sond       powerset SOND (ConvEncoder profiles + SANM CD scorer)
+#     ssnd       seq2seq neural diarization (simu mixer training)
+#     ots_vad    enrollment-free online TS-VAD
+#     tsvad3     TS-VAD with online enrollment-waveform embeddings
+#     tsvad_rev  TS-VAD trained with image-source RIR reverberation
+#     eend       EEND on the shared 3-speaker corpus
+#     ecapa      TS-VAD with a scratch-initialised ECAPA-TDNN speech encoder
+#   vbx (clustering) and enhancer_eval (the enhancer) print "not ported"
+#   and are skipped until their ports land (ROADMAP item 3). m2f, fs_eend,
+#   ssnd and ots_vad need only stage 1 (the corpus and the noises).
 #
 # Runs on one CUDA GPU through the port's CLI:
 #   WORK=exp/hermetic_tsvad_torch bash recipes/hermetic_leaderboard_torch.sh [families...]
@@ -28,6 +33,76 @@ families=${@:-m2f fs_eend eend_vc sond ssnd ots_vad tsvad3 tsvad_rev}
 run_family() {
   local fam=$1
   case "$fam" in
+  m2f)
+    $cli train --family eend_m2f --train-dir "$work/train/data" \
+      --valid-dir "$work/valid/data" --exp-dir "$work/m2f" --resume \
+      --set sample_rate=$rate --set n_speakers=3 \
+      --set d_model=256 --set d_ff=1024 --set n_layers=4 --set n_heads=4 \
+      --set chunk_frames=500 --set batch_size=16 --set num_steps=$steps \
+      --set optimizer=adam --set schedule=poly --set learning_rate=2e-4 \
+      --set warmup_steps=400 --set bf16=true \
+      --set log_every=20 --set valid_every=500
+    $cli infer --family eend_m2f --data-dir "$work/test/data" \
+      --exp-dir "$work/m2f" --out "$work/hyp_m2f.rttm" \
+      --threshold-sweep --ref "$work/test/data/rttm" \
+      --set sample_rate=$rate --set n_speakers=3 \
+      --set d_model=256 --set d_ff=1024 --set n_layers=4 --set n_heads=4 \
+      --set chunk_frames=500
+    ;;
+  fs_eend)
+    $cli train --family fs_eend --train-dir "$work/train/data" \
+      --valid-dir "$work/valid/data" --exp-dir "$work/fs_eend" --resume \
+      --set sample_rate=$rate --set n_speakers=3 --set n_mels=23 \
+      --set d_model=256 --set d_ff=1024 --set n_layers=4 --set n_heads=4 \
+      --set chunk_frames=500 --set batch_size=16 --set num_steps=$steps5 \
+      --set optimizer=adam --set schedule=noam --set learning_rate=1.0 \
+      --set warmup_steps=1000 --set bf16=true \
+      --set log_every=20 --set valid_every=500
+    $cli infer --family fs_eend --data-dir "$work/test/data" \
+      --exp-dir "$work/fs_eend" --out "$work/hyp_fs_eend.rttm" \
+      --threshold-sweep --ref "$work/test/data/rttm" \
+      --set sample_rate=$rate --set n_speakers=3 --set n_mels=23 \
+      --set d_model=256 --set d_ff=1024 --set n_layers=4 --set n_heads=4 \
+      --set chunk_frames=500
+    ;;
+  ssnd)
+    # round-5 protocol: dual simu+real training (the round-4 simu-only
+    # model failed decode even with oracle enrollment — domain gap), longer
+    # budget, arcface weight 0.05, two-pass offline rescore at infer
+    $cli train --family ssnd --train-dir "$work/src" \
+      --real-data-dir "$work/train/data" \
+      --exp-dir "$work/ssnd_r5" --resume \
+      --set sample_rate=$rate --set rs_len=4.0 \
+      --set encoder_blocks=4,8,4 \
+      --set batch_size=16 --set num_steps=8000 \
+      --set optimizer=adam --set schedule=poly --set learning_rate=2e-4 \
+      --set warmup_steps=400 --set bf16=true \
+      --set ssnd_arcface_weight=0.05 \
+      --set log_every=50 --set valid_every=100000
+    $cli infer --family ssnd --data-dir "$work/test/data" \
+      --exp-dir "$work/ssnd_r5" --out "$work/hyp_ssnd.rttm" \
+      --threshold-sweep --ssnd-rescore --ref "$work/test/data/rttm" \
+      --set sample_rate=$rate --set rs_len=4.0 --set encoder_blocks=4,8,4
+    ;;
+  ots_vad)
+    $cli train --family ots_vad --train-dir "$work/train/data" \
+      --valid-dir "$work/valid/data" --exp-dir "$work/ots_vad" --resume \
+      --noise-dir "$work/noise" \
+      --set sample_rate=$rate --set n_mels=80 --set n_speakers=4 \
+      --set rs_len=4.0 --set segment_shift=2.0 \
+      --set encoder_blocks=2,2,2,2 --set d_model=192 --set n_layers=4 \
+      --set n_heads=4 --set d_ff=512 \
+      --set batch_size=16 --set num_steps=$steps \
+      --set optimizer=adam --set schedule=poly --set learning_rate=2e-4 \
+      --set warmup_steps=400 --set bf16=true \
+      --set log_every=20 --set valid_every=500
+    $cli infer --family ots_vad --data-dir "$work/test/data" \
+      --exp-dir "$work/ots_vad" --out "$work/hyp_ots_vad.rttm" \
+      --threshold-sweep --ref "$work/test/data/rttm" \
+      --set sample_rate=$rate --set n_mels=80 --set n_speakers=4 \
+      --set rs_len=4.0 --set encoder_blocks=2,2,2,2 --set d_model=192 \
+      --set n_layers=4 --set n_heads=4 --set d_ff=512
+    ;;
   tsvad_rev)
     # reverb-aug variant: train-time convolution with image-source
     # shoebox-room RIRs (data/room.py, genrir.py semantics)
@@ -152,7 +227,7 @@ PYEOF
       --set speech_encoder_type=ecapa --set sample_rate=$rate --set n_mels=80 \
       --set rs_len=4.0
     ;;
-  m2f|fs_eend|ssnd|ots_vad|vbx|enhancer_eval)
+  vbx|enhancer_eval)
     echo "family $fam: not ported to PyTorch yet, skipped" >&2
     return 2
     ;;

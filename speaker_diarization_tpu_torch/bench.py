@@ -44,13 +44,26 @@ leaderboard's chunks (d_model 256, 4 layers, 3 channels, 8 kHz, bf16, batch
 leaderboard's settings (SOND, TS-VAD3: adam, poly, lr 2e-4, warmup 400;
 EEND-VC: adam, noam, lr 1.0, warmup 1000; clip 5).
 
+`--family ssnd|eend_m2f|fs_eend|ots_vad` measures the eighth slice at full
+width: SSND at SSNDConfig() (CAM++ 12/24/16 extractor, d_model 256, 4 layers
+of 8 heads, 4 slots, 1,000 global speakers, bf16, batch 16 × 4 s at 16 kHz;
+the forward for given slot queries), EEND-M2F at the CLI's widths (d_model
+256, 4 conformer layers with k49, 8 queries, 2 decoder layers; log-mel at
+subsampling 1; batch 16 × 500 frames = 5 s at 8 kHz), FS-EEND at the CLI's
+widths (d_model 256, 4 encoder and 2 fusion layers, 5 channels; batch 16 ×
+500 subsampled frames = 50 s at 8 kHz) and OTS-VAD at OTSVADConfig()
+(ResNet34 3,4,6,3, d_model 256, batch 16 × 4 s at 16 kHz for the forward,
+16 × (4 s + 4 s) for a step); with `--train`, ms per step at the hermetic
+leaderboard's settings (FS-EEND: adam, noam, lr 1.0, warmup 1000; the
+others: adam, poly, lr 2e-4, warmup 400; clip 5).
+
 Completion is proven by a data dependency: every forward's probability
 checksum (every step's loss) is chained into one device scalar that is read
 on the host after torch.cuda.synchronize(), so the clock cannot stop before
 every forward or step ran.
 
     python -m speaker_diarization_tpu_torch.bench \\
-        [--family tsvad|tsvad_streaming|eend|eend_eda|spk|sond|tsvad3|eend_vc] \\
+        [--family tsvad|tsvad_streaming|eend|eend_eda|spk|sond|tsvad3|eend_vc|ssnd|eend_m2f|fs_eend|ots_vad] \\
         [--backend mamba|mamba2] \\
         [--train] [--profile profile.txt]
 
@@ -302,14 +315,20 @@ def embed_throughput(encoder, audios, iters: int = 10, reps: int = 3) -> Dict[st
                 reps_s=dts)
 
 
-# the seventh slice: SOND, TS-VAD3 and EEND-VC at full width
+# the seventh and eighth slices at full width: SOND, TS-VAD3, EEND-VC; SSND,
+# EEND-M2F, FS-EEND, OTS-VAD
+SLICE_FAMILIES = ("sond", "tsvad3", "eend_vc", "ssnd", "eend_m2f", "fs_eend", "ots_vad")
 SLICE7_BATCH, SLICE7_RATE, ENROLL_S = 16, 16000, 6.0
 VC_BATCH, VC_CHUNK, VC_SPEAKERS = 32, 200, 32  # the leaderboard's eend_vc batch and chunk; a 32-row speaker table
+SLICE8_BATCH, SLICE8_CHUNK = 16, 500  # the leaderboard's m2f and fs_eend batch and chunk (frames)
+EIGHT_KHZ = ("eend_vc", "eend_m2f", "fs_eend")
 
 
-def slice7_model(family: str, device, seed: int = 0, bf16: bool = True, dropout: float = 0.1):
+def slice_model(family: str, device, seed: int = 0, bf16: bool = True, dropout: float = 0.1):
     """(model, TrainCliConfig or None) at the full widths above, seeded random weights."""
+    from .models.ots_vad import OTSVADConfig, OTSVADModel
     from .models.sond import SONDConfig, SONDModel
+    from .models.ssnd import SSNDConfig, SSNDModel
     from .models.tsvad import TSVADConfig
     from .models.tsvad3 import TSVAD3Config, TSVAD3Model
 
@@ -319,85 +338,128 @@ def slice7_model(family: str, device, seed: int = 0, bf16: bool = True, dropout:
     if family == "tsvad3":
         cfg = TSVAD3Config(base=TSVADConfig(dropout=dropout))
         return TSVAD3Model(cfg, dtype=dtype, device=device, seed=seed), None
-    return eend_model("eend_vc", device, seed=seed, bf16=bf16, n_speakers=3, chunk_frames=VC_CHUNK,
-                      all_n_speakers=VC_SPEAKERS, dropout=dropout)
+    if family == "ssnd":
+        return SSNDModel(SSNDConfig(), dtype=dtype, device=device, seed=seed, dropout=dropout), None
+    if family == "ots_vad":
+        return OTSVADModel(OTSVADConfig(dropout=dropout), dtype=dtype, device=device, seed=seed), None
+    if family == "eend_vc":
+        return eend_model("eend_vc", device, seed=seed, bf16=bf16, n_speakers=3, chunk_frames=VC_CHUNK,
+                          all_n_speakers=VC_SPEAKERS, dropout=dropout)
+    front = dict(subsampling=1, context_size=0) if family == "eend_m2f" else {}
+    return eend_model(family, device, seed=seed, bf16=bf16, n_speakers=3, chunk_frames=SLICE8_CHUNK, dropout=dropout,
+                      **front)
 
 
-def make_slice7_batches(family: str, model, n_bufs: int, seed: int, device) -> List[Dict]:
+def make_slice_batches(family: str, model, n_bufs: int, seed: int, device) -> List[Dict]:
     """Distinct seeded device batches of the family's training loss: SOND
     {audio, target_embs (the 16 profiles, the last 12 absent in half the
     batch), labels at 25 Hz}, TS-VAD3 {audio, enroll_audio, labels}, EEND-VC
-    the EEND chunk batch with speaker ids (−1 among them)."""
+    the EEND chunk batch with speaker ids (−1 among them), EEND-M2F and
+    FS-EEND the EEND chunk batch (500 frames at subsampling 1 and at 10),
+    SSND {audio 4 s, labels (B, S, 100), spk_gids (−1 among them), aux_embs
+    (the slot queries)}, OTS-VAD {audio 8 s (left and right halves), labels
+    at 25 Hz}."""
+    from .cli.main import TrainCliConfig, _slots
+
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    if family == "eend_vc":
-        from .cli.main import TrainCliConfig
-
-        cfg = TrainCliConfig(family="eend_vc", n_speakers=3, chunk_frames=VC_CHUNK)
-        out = make_eend_batches(cfg, VC_BATCH, n_bufs, seed, device)
-        for b in out:
+    if family in EIGHT_KHZ:
+        vc = family == "eend_vc"
+        front = dict(subsampling=1, context_size=0) if family == "eend_m2f" else {}
+        cfg = TrainCliConfig(family=family, n_speakers=3, chunk_frames=VC_CHUNK if vc else SLICE8_CHUNK, **front)
+        out = make_eend_batches(cfg, VC_BATCH if vc else SLICE8_BATCH, n_bufs, seed, device)
+        for b in out if vc else ():
             ids = rng.integers(0, VC_SPEAKERS, (VC_BATCH, 3)).astype(np.int32)
             ids[rng.random((VC_BATCH, 3)) < 0.2] = -1
             b["spk_ids"] = t(ids)
         return out
-    n = int(CHUNK_S * SLICE7_RATE)
-    S = model.cfg.max_speakers if family == "sond" else model.cfg.base.max_num_speaker
+    seconds = 2 * CHUNK_S if family == "ots_vad" else CHUNK_S
+    n = int(seconds * SLICE7_RATE)
+    S = _slots(model)
     out = []
     for _ in range(n_bufs):
+        labels = (rng.random((SLICE7_BATCH, int(seconds * 25), S)) < (0.15 if family == "sond" else 0.3))
         b = dict(audio=t((0.1 * rng.standard_normal((SLICE7_BATCH, n))).astype(np.float32)),
-                 labels=t((rng.random((SLICE7_BATCH, int(CHUNK_S * 25), S)) < (0.15 if family == "sond" else 0.3))
-                          .astype(np.float32)))
+                 labels=t(labels.astype(np.float32)))
         if family == "sond":
             embs = rng.standard_normal((SLICE7_BATCH, S, 192)).astype(np.float32)
             embs[: SLICE7_BATCH // 2, 4:] = 0.0
             b["target_embs"] = t(embs)
-        else:
+        elif family == "tsvad3":
             b["enroll_audio"] = t((0.1 * rng.standard_normal((SLICE7_BATCH, S, int(ENROLL_S * SLICE7_RATE))))
                                   .astype(np.float32))
+        elif family == "ssnd":
+            gids = rng.integers(0, model.cfg.n_all_speakers, (SLICE7_BATCH, S))
+            gids[rng.random((SLICE7_BATCH, S)) < 0.25] = -1
+            b.update(labels=b["labels"].transpose(1, 2).contiguous(), spk_gids=t(gids),
+                     aux_embs=t(rng.standard_normal((SLICE7_BATCH, S, model.cfg.emb_dim)).astype(np.float32)))
         out.append(b)
     return out
 
 
-def slice7_forward(family: str, model) -> Callable[[Dict], torch.Tensor]:
+def slice_forward(family: str, model) -> Callable[[Dict], torch.Tensor]:
     """batch → what `infer` computes on the device: SOND's per-speaker
     probabilities on the 25 Hz grid, TS-VAD3's logits, EEND-VC's (logits,
-    chunk vectors)."""
+    chunk vectors), SSND's (VAD logits, slot embeddings) for the batch's
+    slot queries, EEND-M2F's (mask logits, class logits), FS-EEND's (logits,
+    embeddings), OTS-VAD's per-speaker probabilities of a 4 s block (its
+    frame embeddings, then the backend on the masked means under the labels:
+    the embed and score forwards of the online decode)."""
     if family == "sond":
         from .infer.chunked import sond_probabilities
 
         return lambda b: sond_probabilities(model, b["audio"], b["target_embs"], SLICE7_RATE)
     if family == "tsvad3":
         return lambda b: model(b["audio"], b["enroll_audio"], int(CHUNK_S * 25))
+    if family == "ssnd":
+        return lambda b: model(b["audio"], b["aux_embs"])
+    if family == "eend_m2f":
+        def m2f(b):
+            out = model(b["audio"])
+            return out["mask_logits"], out["class_logits"]
+
+        return m2f
+    if family == "ots_vad":
+        def ots(b):
+            n = b["audio"].shape[1] // 2
+            emb = model.embed_frames(b["audio"][:, :n])
+            y = b["labels"][:, : 2 * emb.shape[1] : 2].transpose(1, 2)
+            return torch.sigmoid(model.backend(emb, model.masked_target_embeddings(emb, y)))
+
+        return ots
     return lambda b: model(b["audio"], b["frame_mask"])
 
 
-def slice7_loss(family: str):
+def slice_loss(family: str):
     from .train import tasks
 
     if family == "sond":
         return tasks.make_sond_loss_from_audio(sample_rate=SLICE7_RATE)
     if family == "tsvad3":
         return tasks.make_tsvad3_loss(int(CHUNK_S * 25))
-    return tasks.make_eend_vc_loss()
+    return {"eend_vc": tasks.make_eend_vc_loss, "eend_m2f": tasks.make_m2f_loss, "fs_eend": tasks.make_fs_eend_loss,
+            "ots_vad": tasks.make_ots_vad_loss, "ssnd": lambda: tasks.make_ssnd_loss(arcface_weight=0.05)}[family]()
 
 
-def slice7_recipe_trainer(family: str, model, seed: int = 0):
-    """A Trainer with the hermetic leaderboard's settings for the family."""
+def slice_recipe_trainer(family: str, model, seed: int = 0):
+    """A Trainer with the hermetic leaderboard's settings for the family
+    (EEND-VC and FS-EEND: adam, noam, lr 1.0, warmup 1000; the others: adam,
+    poly, lr 2e-4, warmup 400; clip 5)."""
     from .train.trainer import Trainer, TrainerConfig
 
-    if family == "eend_vc":
+    if family in ("eend_vc", "fs_eend"):
         tcfg = TrainerConfig(optimizer="adam", schedule="noam", learning_rate=1.0, d_model=256, warmup_steps=1000,
                              grad_clip_norm=5.0, seed=seed)
     else:
         tcfg = TrainerConfig(optimizer="adam", schedule="poly", learning_rate=2e-4, warmup_steps=400,
-                             total_steps=4000, grad_clip_norm=5.0, seed=seed)
-    return Trainer(model, slice7_loss(family), tcfg)
+                             total_steps=8000 if family == "ssnd" else 4000, grad_clip_norm=5.0, seed=seed)
+    return Trainer(model, slice_loss(family), tcfg)
 
 
 @torch.no_grad()
-def slice7_throughput(family: str, model, batches, iters: int = 10, reps: int = 3) -> Dict[str, float]:
+def slice_throughput(family: str, model, batches, iters: int = 10, reps: int = 3) -> Dict[str, float]:
     """Median over `reps` of `iters` pipelined forwards on distinct batches."""
-    fwd = slice7_forward(family, model)
+    fwd = slice_forward(family, model)
 
     def call(i):
         out = fwd(batches[i % len(batches)])
@@ -405,14 +467,15 @@ def slice7_throughput(family: str, model, batches, iters: int = 10, reps: int = 
 
     dt, witness, dts = _pipelined(call, batches[0]["audio"].device, iters, reps)
     B, N = batches[0]["audio"].shape
-    rate = model.frontend.sample_rate if family == "eend_vc" else SLICE7_RATE
+    N = N // 2 if family == "ots_vad" else N
+    rate = model.frontend.sample_rate if family in EIGHT_KHZ else SLICE7_RATE
     return dict(ms_per_forward=1e3 * dt / iters, audio_s_per_s=B * N / rate * iters / dt, witness=witness, reps_s=dts)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--family", choices=["tsvad", "tsvad_streaming", "eend", "eend_eda", "spk", "sond", "tsvad3",
-                                         "eend_vc"], default="tsvad")
+    ap.add_argument("--family", choices=["tsvad", "tsvad_streaming", "eend", "eend_eda", "spk", *SLICE_FAMILIES],
+                    default="tsvad")
     ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add", "mamba2", "mamba2_add"],
                     default="transformer", help="tsvad: both backends")
     ap.add_argument("--train", action="store_true", help="time train steps instead of forwards")
@@ -469,17 +532,17 @@ def main(argv=None) -> int:
 
             def forward():
                 return fwd(audios[0])
-    elif args.family in ("sond", "tsvad3", "eend_vc"):
-        model, _ = slice7_model(args.family, "cuda")
-        batches = make_slice7_batches(args.family, model, 4, 0, model.device)
+    elif args.family in SLICE_FAMILIES:
+        model, _ = slice_model(args.family, "cuda")
+        batches = make_slice_batches(args.family, model, 4, 0, model.device)
         meta.update(batch=batches[0]["audio"].shape[0],
-                    chunk_s=batches[0]["audio"].shape[1] / (8000 if args.family == "eend_vc" else SLICE7_RATE))
+                    chunk_s=batches[0]["audio"].shape[1] / (8000 if args.family in EIGHT_KHZ else SLICE7_RATE))
         if args.train:
-            trainer = slice7_recipe_trainer(args.family, model)
+            trainer = slice_recipe_trainer(args.family, model)
             res = train_throughput(trainer, batches)
         else:
-            res = slice7_throughput(args.family, model, batches)
-            fwd = slice7_forward(args.family, model)
+            res = slice_throughput(args.family, model, batches)
+            fwd = slice_forward(args.family, model)
 
             def forward():
                 return fwd(batches[0])

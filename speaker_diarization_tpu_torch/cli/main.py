@@ -29,8 +29,12 @@
         --train-dir D[,D2] --target-audio-dir T[,T2] [--valid-dir V --valid-target-audio-dir TV] \\
         --exp-dir X [--encoder-ckpt enc.npz] [--noise-dir N] [--rir-dir R] [--resume] \\
         [--set key=value ...] [--device cpu]
-    python -m speaker_diarization_tpu_torch.cli train --family eend_vc \\
+    python -m speaker_diarization_tpu_torch.cli train --family eend_vc|eend_m2f|fs_eend \\
         --train-dir D[,D2] [--valid-dir V] --exp-dir X [--resume] [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli train --family ssnd --train-dir SRC \\
+        [--real-data-dir D] [--noise-dir N] --exp-dir X [--resume] [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli train --family ots_vad --train-dir D[,D2] \\
+        [--valid-dir V] [--noise-dir N] [--rir-dir R] --exp-dir X [--resume] [--set key=value ...] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli infer [--family eend|eend_eda] \\
         --data-dir DIR --exp-dir X [--step S] [--avg-last K] --out hyp.rttm \\
         [--set key=value ...] [--attractor-threshold 0.5] \\
@@ -42,6 +46,9 @@
     python -m speaker_diarization_tpu_torch.cli infer --family sond|tsvad3|eend_vc \\
         --data-dir DIR --exp-dir X (sond: --emb-store EMB.npz | tsvad3: --target-audio-dir T \\
         | eend_vc: [--num-spks -1|0|k] [--sil-spk-th 0.05]) --out hyp.rttm [...as above]
+    python -m speaker_diarization_tpu_torch.cli infer --family ssnd|eend_m2f|fs_eend|ots_vad \\
+        --data-dir DIR --exp-dir X --out hyp.rttm (ssnd: [--ssnd-rescore] | eend_m2f: \\
+        [--class-threshold 0.5] [--m2f-max-concurrent K]) [...as above]
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm [--cder]
 
 Ported families: eend, eend_eda (transformer or conformer encoder, `--set
@@ -56,7 +63,14 @@ target_audio tree instead of stored embeddings), sond (powerset classes
 over profiles from the embedding store), eend_vc (chunk vectors clustered
 by constrained AHC; `--num-spks` -1 takes each recording's speaker count
 from --ref or the data dir's rttm, 0 cuts the dendrogram at a distance, k
-fixes the count), and spk (speaker-encoder pretraining, exported by
+fixes the count), ssnd (query decoders over speaker slots, trained on
+meetings mixed on the fly from a single-speaker --train-dir and, with
+--real-data-dir, blocks of real meetings; decoded online with a speaker
+memory, `--ssnd-rescore` for the two-pass offline rescoring), eend_m2f
+(Mask2Former set prediction, the front-end forced to subsampling 1 and
+context 0; Hungarian matching on the host), fs_eend (frame-streaming EEND
+with a causal attractor decoder), ots_vad (enrollment-free online TS-VAD,
+trained on 2·rs_len chunks, slots named spk1…spkS), and spk (speaker-encoder pretraining, exported by
 `export-encoder` in the JAX package's npz format for `extract-embeddings`
 and `train --family tsvad --encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
 package's CLI (`TrainCliConfig`, cli/main.py:33-110; the family defaults to
@@ -81,9 +95,10 @@ import sys
 
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
-FAMILIES = ("eend", "eend_eda", "eend_vc", "tsvad", "tsvad_streaming", "tsvad3", "sond", "spk")  # the ported ones
+FAMILIES = ("eend", "eend_eda", "eend_vc", "tsvad", "tsvad_streaming", "tsvad3", "sond", "ssnd", "eend_m2f",
+            "fs_eend", "ots_vad", "spk")  # the ported ones
 INFER_FAMILIES = tuple(f for f in FAMILIES if f != "spk")  # spk exports an encoder instead
-TSVAD_FAMILIES = ("tsvad", "tsvad_streaming", "tsvad3", "sond")  # windows with target speakers
+TSVAD_FAMILIES = ("tsvad", "tsvad_streaming", "tsvad3", "sond", "ots_vad")  # windows of TS-VAD chunks
 
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
@@ -95,12 +110,12 @@ _PARAMS_HELP = (
 @dataclasses.dataclass
 class TrainCliConfig:
     """The fields of the JAX CLI's TrainCliConfig for the ported families,
-    same names and defaults. The JAX-only fields belong to families not
-    ported yet (ssnd_*, enhance_prob, n_data)."""
+    same names and defaults. The JAX-only fields belong to what is not
+    ported yet (enhance_prob, the enhancer's; n_data, the mesh's)."""
 
-    family: str = "eend"  # eend | eend_eda | eend_vc | tsvad | tsvad_streaming | tsvad3 | sond | spk
+    family: str = "eend"  # one of FAMILIES
     # model
-    n_speakers: int = 2  # tsvad, tsvad3, sond: > 2 sets the speaker slots, else 4
+    n_speakers: int = 2  # tsvad, tsvad3, sond, ssnd, ots_vad: > 2 sets the speaker slots, else 4
     max_attractors: int = 15  # eend_eda: attractors decoded at inference
     d_model: int = 256  # EEND width; noam's d_model
     n_layers: int = 4  # EEND encoder layers; TS-VAD layers per backend
@@ -130,8 +145,16 @@ class TrainCliConfig:
     # @100 Hz = 16 frames @25 Hz; num_left_chunks history window)
     streaming_chunk_size: int = 16
     streaming_left_chunks: int = 4
+    # ssnd (on-the-fly simulated mixtures, reference simu_diar_dataset.py)
+    ssnd_overlap_prob: float = 0.3
+    ssnd_sil_scale: float = 1.0
+    # reference --arcface-weight (train_accelerate_ddp.py:305, default 0.01)
+    ssnd_arcface_weight: float = 0.01
+    # fraction of each batch drawn from --real-data-dir meeting blocks
+    # (reference dual simu+real protocol, train_one_epoch_multi)
+    ssnd_real_ratio: float = 0.5
     encoder_blocks: str = ""  # "12,24,16" = reference CAM++; sond's ResNet34 "3,4,6,3"
-    # spk classes, eend_vc speaker-table rows; 0 = the training corpus's speakers
+    # spk classes, eend_vc and ssnd speaker-table rows; 0 = the training corpus's speakers
     all_n_speakers: int = 0
     # spk (speaker-embedding pretraining)
     spk_dur: float = 2.0  # crop seconds per training utterance
@@ -226,6 +249,34 @@ def sond_config(cfg: TrainCliConfig):
                       encoder_blocks=_blocks(cfg, (3, 4, 6, 3)))
 
 
+def ssnd_config(cfg: TrainCliConfig):
+    """TrainCliConfig → SSNDConfig, as the JAX CLI's _build_model does (the
+    block is rs_len at 25 Hz; the other widths are SSNDConfig's)."""
+    from ..models.ssnd import SSNDConfig
+
+    return SSNDConfig(n_all_speakers=cfg.all_n_speakers, max_speakers=cfg.n_speakers if cfg.n_speakers > 2 else 4,
+                      vad_out_len=int(cfg.rs_len * 25), sample_rate=cfg.sample_rate, extractor_blocks=_blocks(cfg))
+
+
+def ots_vad_config(cfg: TrainCliConfig):
+    """TrainCliConfig → OTSVADConfig, as the JAX CLI's _build_model does
+    (n_layers // 2 conformer blocks, ResNet34 3,4,6,3 unless encoder_blocks)."""
+    from ..models.ots_vad import OTSVADConfig
+
+    return OTSVADConfig(num_speakers=cfg.n_speakers if cfg.n_speakers > 2 else 4, d_model=cfg.d_model,
+                        conformer_layers=max(cfg.n_layers // 2, 1), n_heads=cfg.n_heads, d_ff=cfg.d_ff,
+                        feat_dim=cfg.n_mels if cfg.n_mels != 23 else 80, sample_rate=cfg.sample_rate,
+                        encoder_blocks=_blocks(cfg, (3, 4, 6, 3)), dropout=cfg.dropout)
+
+
+def m2f_config(cfg: TrainCliConfig):
+    """TrainCliConfig → M2FConfig, as the JAX CLI's _build_model does."""
+    from ..models.eend_m2f import M2FConfig
+
+    return M2FConfig(num_queries=max(cfg.n_speakers * 2, 8), d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
+                     enc_layers=cfg.n_layers, dec_layers=max(cfg.n_layers // 2, 1), dropout=cfg.dropout)
+
+
 def streaming_config(cfg: TrainCliConfig):
     """TrainCliConfig → StreamingTSVADConfig, as the JAX CLI's _build_model does."""
     from ..models.streaming_tsvad import StreamingTSVADConfig
@@ -252,6 +303,12 @@ def _cli_config(args, base: TrainCliConfig) -> TrainCliConfig:
         cfg = apply_overrides(cfg, args.set)
     if cfg.family not in FAMILIES:
         raise SystemExit(f"family {cfg.family!r} is not ported yet; ported: {', '.join(FAMILIES)}")
+    if cfg.family == "eend_m2f" and (cfg.subsampling != 1 or cfg.context_size != 0):
+        # the ×10 lives in the conv backbone and masks are scored at the input
+        # frame rate, so the front-end and the dataset run unsubsampled and
+        # unspliced (JAX _normalize_cfg)
+        logging.info("eend_m2f: forcing subsampling=1 context_size=0 (the backbone does the x10)")
+        cfg = dataclasses.replace(cfg, subsampling=1, context_size=0)
     return cfg
 
 
@@ -315,12 +372,30 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
         from ..models.sond import SONDModel
 
         return SONDModel(sond_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "ots_vad":
+        from ..models.ots_vad import OTSVADModel
+
+        return OTSVADModel(ots_vad_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "ssnd":
+        from ..models.ssnd import SSNDModel
+
+        return SSNDModel(ssnd_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
     if cfg.family == "spk":
         from ..models.spk_embed import SpeakerClassifier
 
         return SpeakerClassifier(spk_config(cfg, cfg.all_n_speakers), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "eend_m2f":
+        from ..models.eend_m2f import EENDM2FModel
+
+        fe = dataclasses.replace(frontend_config(cfg), subsampling=1, context_size=0)
+        return EENDM2FModel(m2f_config(cfg), frontend=fe, dtype=dtype, device=device, seed=cfg.seed)
     common = dict(d_model=cfg.d_model, n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_ff=cfg.d_ff, dropout=cfg.dropout,
                   frontend=frontend_config(cfg), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "fs_eend":
+        from ..models.fs_eend import FSEENDModel
+
+        return FSEENDModel(n_speakers=cfg.n_speakers, enc_layers=cfg.n_layers, dec_layers=max(cfg.n_layers // 2, 1),
+                           **{k: v for k, v in common.items() if k != "n_layers"})
     if cfg.family == "eend_vc":
         from ..models.eend_vc import EENDVCModel
 
@@ -336,16 +411,21 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
 
 
 def _slots(model) -> int:
-    """Speaker slots of a windowed model (TS-VAD, streaming TS-VAD, TS-VAD3, SOND)."""
+    """Speaker slots of a windowed model (TS-VAD, streaming TS-VAD, TS-VAD3, SOND, OTS-VAD)."""
     c = model.cfg
-    return c.max_speakers if hasattr(c, "max_speakers") else getattr(c, "base", c).max_num_speaker
+    for name in ("max_speakers", "num_speakers"):
+        if hasattr(c, name):
+            return getattr(c, name)
+    return getattr(c, "base", c).max_num_speaker
 
 
 def _tsvad_data(args, cfg: TrainCliConfig, model):
-    """TS-VAD, streaming TS-VAD, TS-VAD3 and SOND: (loss_fn, train iterator
-    factory, valid iterator factory, sizes). The datasets give the model's
-    slot count; a comma list of --train-dir trains on the corpora jointly
-    (TS-VAD3: with a parallel comma list of --target-audio-dir)."""
+    """TS-VAD, streaming TS-VAD, TS-VAD3, SOND and OTS-VAD: (loss_fn, train
+    iterator factory, valid iterator factory, sizes). The datasets give the
+    model's slot count; a comma list of --train-dir trains on the corpora
+    jointly (TS-VAD3: with a parallel comma list of --target-audio-dir).
+    OTS-VAD needs no embeddings (--emb-store is optional) and reads chunks
+    of 2·rs_len: it self-enrolls on the left half and predicts the right."""
     from ..data.eend_dataset import ConcatChunkDataset
     from ..data.tsvad_dataset import TSVADChunkDataset, tsvad_batch_iterator
     from ..infer.embeddings import EmbeddingStore
@@ -354,6 +434,7 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
     train_dirs = args.train_dir.split(",")
     tads, vtad = [None] * len(train_dirs), None
     T = int(cfg.rs_len * 25)
+    rs_len = 2 * cfg.rs_len if cfg.family == "ots_vad" else cfg.rs_len
     if cfg.family == "tsvad3":
         if not args.target_audio_dir:
             raise SystemExit("train --family tsvad3 needs --target-audio-dir (prepare-targets' target_audio tree): "
@@ -367,6 +448,8 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
             _load_encoder(model, args.encoder_ckpt)
             _load_encoder(model, args.encoder_ckpt, "speaker_encoder")
         loss_fn = tasks.make_tsvad3_loss(T, cfg.freeze_encoder)
+    elif cfg.family == "ots_vad":
+        loss_fn = tasks.make_ots_vad_loss()
     elif not args.emb_store:
         raise SystemExit(f"train --family {cfg.family} needs --emb-store")
     elif cfg.family == "tsvad_streaming":
@@ -380,7 +463,7 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
             _load_encoder(model, args.encoder_ckpt)
         loss_fn = tasks.make_tsvad_loss(T, cfg.freeze_encoder)
     store = EmbeddingStore.load(args.emb_store) if args.emb_store else None  # a comma list merges stores
-    common = dict(rs_len=cfg.rs_len, rate=cfg.sample_rate, max_speakers=_slots(model), enhancer=cfg.enhancer or None,
+    common = dict(rs_len=rs_len, rate=cfg.sample_rate, max_speakers=_slots(model), enhancer=cfg.enhancer or None,
                   enroll_len_s=cfg.ts_len)
     dss = [TSVADChunkDataset(d, store, segment_shift=cfg.segment_shift, is_train=True, seed=cfg.seed,
                              noise_dir=args.noise_dir, rir_dir=args.rir_dir, target_audio_dir=t, **common)
@@ -388,7 +471,7 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
     train_ds = dss[0] if len(dss) == 1 else ConcatChunkDataset(dss)
     valid_ds = None
     if args.valid_dir:
-        valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=cfg.rs_len, is_train=False,
+        valid_ds = TSVADChunkDataset(args.valid_dir, store, segment_shift=rs_len, is_train=False,
                                      target_audio_dir=vtad, **common)
     return (
         loss_fn,
@@ -426,8 +509,8 @@ def _eend_data(args, cfg: TrainCliConfig):
             # (left out), not its index in the valid corpus's own list
             table = {s: i for i, s in enumerate(train_ds.all_speakers)}
             valid_ds.spk_to_gid = {s: table.get(s, -1) for s in valid_ds.all_speakers}
-    loss_fn = {"eend": tasks.make_eend_loss, "eend_eda": tasks.make_eda_loss,
-               "eend_vc": tasks.make_eend_vc_loss}[cfg.family]()
+    loss_fn = {"eend": tasks.make_eend_loss, "eend_eda": tasks.make_eda_loss, "eend_vc": tasks.make_eend_vc_loss,
+               "eend_m2f": tasks.make_m2f_loss, "fs_eend": tasks.make_fs_eend_loss}[cfg.family]()
     # the iterator drops partial batches, so a small dev set gets a smaller batch
     vbs = max(1, min(cfg.batch_size, len(valid_ds.chunks))) if valid_ds else 0
     return (
@@ -461,6 +544,43 @@ def _spk_data(args, cfg: TrainCliConfig):
     )
 
 
+def _ssnd_data(args, cfg: TrainCliConfig):
+    """SSND: (cfg with all_n_speakers from the mixer when 0, loss_fn, train
+    iterator factory, None, sizes). Batches are simulated meetings mixed on
+    the fly from the single-speaker --train-dir (SimuDiarMixer), and, with
+    --real-data-dir, a `ssnd_real_ratio` share of each batch cut from real
+    meetings (RealDiarBlocks), their speakers on the mixer's rows of E_all.
+    There is no validation set, as in JAX."""
+    import numpy as np
+
+    from ..data.simulate import RealDiarBlocks, SimuDiarMixer
+    from ..train.tasks import make_ssnd_loss
+
+    mixer = SimuDiarMixer(args.train_dir, noise_dir=args.noise_dir, duration=cfg.rs_len, rate=cfg.sample_rate,
+                          max_speakers=cfg.n_speakers if cfg.n_speakers > 2 else 4, sil_scale=cfg.ssnd_sil_scale,
+                          overlap_prob=cfg.ssnd_overlap_prob, seed=cfg.seed)
+    if cfg.all_n_speakers == 0:
+        cfg = dataclasses.replace(cfg, all_n_speakers=mixer.n_all_speakers)
+    real = None
+    if args.real_data_dir:
+        real = RealDiarBlocks(args.real_data_dir, mixer.spk_to_gid, duration=cfg.rs_len, rate=cfg.sample_rate,
+                              max_speakers=mixer.max_speakers, seed=cfg.seed + 1)
+
+    def batches(bs):
+        n_real = int(round(bs * cfg.ssnd_real_ratio)) if real else 0
+        for b in mixer.batches(bs - n_real if n_real else bs):
+            audio, labels, gids = b["audio"], b["labels"], b["spk_gids"]
+            if n_real:
+                items = [real.sample() for _ in range(n_real)]
+                audio = np.concatenate([audio, np.stack([i["audio"] for i in items])])
+                labels = np.concatenate([labels, np.stack([i["labels"] for i in items])])
+                gids = np.concatenate([gids, np.stack([i["spk_gids"] for i in items])])
+            yield dict(audio=audio, labels=labels.transpose(0, 2, 1), spk_gids=gids)  # labels (B, S, T)
+
+    loss_fn = make_ssnd_loss(arcface_weight=cfg.ssnd_arcface_weight)
+    return cfg, loss_fn, lambda ep: batches(cfg.batch_size), None, (mixer.n_all_speakers, 0)
+
+
 def cmd_train(args) -> int:
     from ..train.checkpoints import CheckpointManager
     from ..train.loop import run_training
@@ -473,8 +593,9 @@ def cmd_train(args) -> int:
     if cfg.family in TSVAD_FAMILIES:
         model = build_model(cfg, dev)
         loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
-    else:  # spk's class count and eend_vc's speaker table come from the corpus
-        cfg, loss_fn, make_train, make_valid, sizes = (_spk_data if cfg.family == "spk" else _eend_data)(args, cfg)
+    else:  # spk's class count and eend_vc's and ssnd's speaker tables come from the corpus
+        data = {"spk": _spk_data, "ssnd": _ssnd_data}.get(cfg.family, _eend_data)
+        cfg, loss_fn, make_train, make_valid, sizes = data(args, cfg)
         model = build_model(cfg, dev)
     tcfg = TrainerConfig(
         optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, schedule=cfg.schedule, d_model=cfg.d_model,
@@ -514,12 +635,15 @@ def _model_from_exp_dir(args, dev):
     cfg = _cli_config(args, load_json(TrainCliConfig, saved) if os.path.exists(saved) else TrainCliConfig())
     if cfg.family not in INFER_FAMILIES:
         raise SystemExit(f"{args.exp_dir} is a {cfg.family} run: export its encoder with export-encoder")
-    model = build_model(cfg, dev, bf16=args.bf16)
     mgr = CheckpointManager(args.exp_dir)
     step = args.step or mgr.best_step() or mgr.latest_step()
     if step is None:
         raise SystemExit(f"no checkpoints in {args.exp_dir}")
-    model.load_state_dict(mgr.restore(step)["model"])
+    sd = mgr.restore(step)["model"]
+    if cfg.family == "ssnd" and cfg.all_n_speakers == 0:  # the trained inventory is E_all's rows
+        cfg = dataclasses.replace(cfg, all_n_speakers=int(sd["E_all"].shape[0]))
+    model = build_model(cfg, dev, bf16=args.bf16)
+    model.load_state_dict(sd)
     logging.info("restored step %s", step)
     if args.avg_last and args.avg_last > 1:
         steps = mgr.all_steps()[-args.avg_last :]
@@ -565,6 +689,18 @@ def _tsvad_probs(args, model, cfg: TrainCliConfig, rs_len: float):
     return probs, 1.0 / label_rate, {} if cfg.family == "tsvad3" else ds.rec_speakers  # real speaker names
 
 
+def _ots_vad_probs(args, model, cfg: TrainCliConfig, rs_len: float):
+    """OTS-VAD: enrollment-free online decoding per recording (slot
+    bootstrapping and the new-speaker rule) → ({rec: (T, S)}, 1/25 s, slots
+    named spk1…spkS)."""
+    from ..data.kaldi_io import KaldiData
+    from ..infer.ots_vad import ots_vad_infer_dataset
+
+    probs = ots_vad_infer_dataset(model, KaldiData(args.data_dir), rate=cfg.sample_rate, rs_len=rs_len)
+    names = [f"spk{i + 1}" for i in range(model.cfg.num_speakers)]
+    return probs, 1.0 / 25, {rec: names for rec in probs}
+
+
 def _eend_vc_probs(args, model, cfg: TrainCliConfig):
     """EEND-VC: per recording, chunk posteriors and vectors → constrained
     AHC → stitched probabilities ({rec: (T, k)}, frame seconds, {}).
@@ -592,13 +728,44 @@ def _eend_vc_probs(args, model, cfg: TrainCliConfig):
     return probs, fe.frame_shift * fe.subsampling / fe.sample_rate, {}
 
 
+def _ssnd_probs(args, model, cfg: TrainCliConfig):
+    """SSND: per recording, block-wise online inference with a speaker
+    memory, or with --ssnd-rescore the two-pass offline rescoring →
+    ({rec: (T, n_speakers)}, 1/25 s, {})."""
+    from ..data.kaldi_io import KaldiData
+    from ..infer.ssnd_online import make_ssnd_predict, ssnd_offline_rescore, ssnd_online_infer
+
+    c = model.cfg
+    predict = make_ssnd_predict(model)
+    e_pse, e_non = (getattr(model, n).detach().float().cpu().numpy()[0] for n in ("e_pse", "e_non"))
+    block_samples = int(c.vad_out_len / 25 * cfg.sample_rate)
+    infer_fn = ssnd_offline_rescore if args.ssnd_rescore else ssnd_online_infer
+    kd = KaldiData(args.data_dir)
+    probs = {}
+    for rec in sorted(kd.wavs):
+        audio, rate = kd.load_wav(rec)
+        if rate != cfg.sample_rate:
+            raise ValueError(f"{rec}: {rate} Hz audio, the model wants {cfg.sample_rate} Hz")
+        if audio.ndim > 1:
+            audio = audio[:, 0]
+        probs[rec] = infer_fn(predict, audio, block_samples, c.vad_out_len, c.max_speakers, e_pse, e_non)
+    return probs, 1.0 / 25, {}
+
+
 def _eend_probs(args, model, cfg: TrainCliConfig):
-    """Chunked EEND / EEND-EDA probabilities → ({rec: (T, S)}, frame seconds, {})."""
+    """Chunked EEND / EEND-EDA / EEND-M2F / FS-EEND probabilities → ({rec: (T, S)},
+    frame seconds, {}). EEND-M2F keeps the queries above --class-threshold,
+    at most --m2f-max-concurrent a frame (default n_speakers, 0: no cap)."""
+    from ..infer.chunked import infer_dataset, make_eend_predict, make_fs_eend_predict, make_m2f_predict
+
     fe = frontend_config(cfg)
     if cfg.family == "eend":
-        from ..infer.chunked import infer_dataset, make_eend_predict
-
         probs = infer_dataset(make_eend_predict(model), args.data_dir, fe, cfg.chunk_frames)
+    elif cfg.family == "eend_m2f":
+        cap = cfg.n_speakers if args.m2f_max_concurrent is None else args.m2f_max_concurrent
+        probs = infer_dataset(make_m2f_predict(model, args.class_threshold, cap), args.data_dir, fe, cfg.chunk_frames)
+    elif cfg.family == "fs_eend":
+        probs = infer_dataset(make_fs_eend_predict(model), args.data_dir, fe, cfg.chunk_frames)
     else:
         from ..infer.eda import eda_infer_dataset, make_eda_predict
 
@@ -627,10 +794,14 @@ def cmd_infer(args) -> int:
         model.load_state_dict(tsvad_from_flax(load_flax_npz(args.params)))
         cfg, rs_len = TrainCliConfig(family="tsvad"), 4.0
         logging.info("loaded %s on %s (%s)", args.params, model.device, model.dtype)
-    if cfg.family in TSVAD_FAMILIES:
+    if cfg.family == "ots_vad":
+        probs, fs, spk_names = _ots_vad_probs(args, model, cfg, args.rs_len or rs_len)
+    elif cfg.family in TSVAD_FAMILIES:
         probs, fs, spk_names = _tsvad_probs(args, model, cfg, args.rs_len or rs_len)
     elif cfg.family == "eend_vc":
         probs, fs, spk_names = _eend_vc_probs(args, model, cfg)
+    elif cfg.family == "ssnd":
+        probs, fs, spk_names = _ssnd_probs(args, model, cfg)
     else:
         probs, fs, spk_names = _eend_probs(args, model, cfg)
 
@@ -897,6 +1068,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--valid-target-audio-dir", help="tsvad3: target_audio tree for --valid-dir")
     t.add_argument("--encoder-ckpt", help="tsvad, tsvad3: pretrained speech encoder, an export-encoder .npz or a "
                                           "wespeaker CAM++ torch state dict (tsvad3: both CAM++)")
+    t.add_argument("--real-data-dir", help="ssnd: Kaldi dir of real meetings (with rttm) mixed into each batch "
+                                           "at ssnd_real_ratio")
     t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation")
     t.add_argument("--rir-dir", help="Kaldi dir of RIR wavs for reverberation")
     t.add_argument("--max-to-keep", type=int, default=5)
@@ -919,6 +1092,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eend_vc: fixed cluster count (>0), -1 = oracle per-recording count from --ref "
                         "(reference est_nspk mode), 0 = distance-threshold AHC")
     i.add_argument("--sil-spk-th", type=float, default=0.05, help="eend_vc: silent-channel mean-activity threshold")
+    i.add_argument("--class-threshold", type=float, default=0.5, help="eend_m2f: query-keep threshold")
+    i.add_argument("--m2f-max-concurrent", type=int,
+                   help="eend_m2f: per-frame top-k speaker cap (reference infer2); default n_speakers, 0 disables")
+    i.add_argument("--ssnd-rescore", action="store_true",
+                   help="ssnd: two-pass offline rescoring against the final speaker memory (reference offline_rescore)")
     i.add_argument("--params", help=_PARAMS_HELP)
     i.add_argument("--exp-dir", help="a `train` run: restore its best (else latest) checkpoint")
     i.add_argument("--step", type=int, help="with --exp-dir: restore this step")

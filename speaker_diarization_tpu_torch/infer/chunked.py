@@ -8,7 +8,9 @@ Counterpart of speaker_diarization_tpu/infer/chunked.py:
 - `tsvad_infer_dataset`: overlapped TS-VAD windows with per-frame
   probability voting (reference ts_vad2/model.py:957-968 + infer.py:86-94).
 `make_eend_predict` / `make_tsvad_predict` wrap a model as the predictor
-(TS-VAD3 takes enrollment waveforms through the latter);
+(TS-VAD3 takes enrollment waveforms through the latter); `make_m2f_predict`
+turns EEND-M2F's kept queries into channels and `make_fs_eend_predict`
+keeps FS-EEND's speaker channels;
 `make_streaming_window_predict` decodes each TS-VAD window chunk by chunk
 through a streaming model's caches; `make_sond_predict` folds SOND's
 powerset posteriors back to per-speaker probabilities on the 25 Hz grid.
@@ -91,6 +93,40 @@ def make_eend_predict(model) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
         a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
         m = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(dev)
         return (torch.sigmoid(model(a, m)) * m[..., None]).cpu().numpy()
+
+    return predict
+
+
+def make_m2f_predict(model, class_threshold: float = 0.5, max_concurrent: int = 0):
+    """(audio, frame_mask) numpy → (B, T, Q) probabilities: the activity of
+    every query whose class probability passes `class_threshold`, at most
+    `max_concurrent` a frame (0: no cap), masked (models/eend_m2f.
+    m2f_predict_activity)."""
+    from ..models.eend_m2f import m2f_predict_activity
+
+    dev = model.device
+
+    @torch.no_grad()
+    def predict(audio: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
+        m = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(dev)
+        act, _ = m2f_predict_activity(model(a, m), class_threshold, max_concurrent)
+        return (act.transpose(1, 2) * m[..., None]).cpu().numpy()
+
+    return predict
+
+
+def make_fs_eend_predict(model) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
+    """(audio, frame_mask) numpy → the speaker channels' masked sigmoid
+    probabilities (B, T, n_speakers): channel 0 is silence and the last the pad."""
+    dev = model.device
+
+    @torch.no_grad()
+    def predict(audio: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        a = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(dev)
+        m = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).to(dev)
+        logits, _ = model(a, m)
+        return (torch.sigmoid(logits[..., 1 : 1 + model.n_speakers]) * m[..., None]).cpu().numpy()
 
     return predict
 

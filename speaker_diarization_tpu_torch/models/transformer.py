@@ -63,18 +63,24 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, generator=None, mask=None):
         """(B, T, D) self-attention; `mask` (B|1, 1, T, T) bool, True = attend."""
-        B, T, D = x.shape
-        H = self.n_heads
-        q = self.query(x).view(B, T, H, D // H).transpose(1, 2)
-        k = self.key(x).view(B, T, H, D // H).transpose(1, 2)
-        v = self.value(x).view(B, T, H, D // H).transpose(1, 2)
-        q = q / torch.tensor(math.sqrt(D // H), dtype=x.dtype)
-        s = torch.matmul(q, k.transpose(-1, -2))  # (B, H, T, T)
+        return self.attend(x, x, x, generator, mask)
+
+    def attend(self, x_q, x_k, x_v, generator=None, mask=None):
+        """flax `MultiHeadDotProductAttention(x_q, x_k, x_v)`: queries (B, Tq, D)
+        over keys (B, Tk, D) and values (B, Tk, D); `mask` (B|1, 1|H, Tq, Tk)
+        bool, True = attend."""
+        B, Tq, D = x_q.shape
+        Tk, H = x_k.shape[1], self.n_heads
+        q = self.query(x_q).view(B, Tq, H, D // H).transpose(1, 2)
+        k = self.key(x_k).view(B, Tk, H, D // H).transpose(1, 2)
+        v = self.value(x_v).view(B, Tk, H, D // H).transpose(1, 2)
+        q = q / torch.tensor(math.sqrt(D // H), dtype=x_q.dtype)
+        s = torch.matmul(q, k.transpose(-1, -2))  # (B, H, Tq, Tk)
         if mask is not None:
             s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
         w = torch.softmax(s, dim=-1)
         w = drop(w, self.dropout, self.training, generator)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(B, T, D)
+        o = torch.matmul(w, v).transpose(1, 2).reshape(B, Tq, D)
         return self.out(o)
 
 
@@ -112,6 +118,12 @@ def make_padding_mask(frame_mask: torch.Tensor) -> torch.Tensor:
     return m[:, None, :, None] & m[:, None, None, :]
 
 
+def make_causal_mask(T: int, delay: int = 0, device=None) -> torch.Tensor:
+    """(1, 1, T, T) causal mask with a look-ahead of `delay` frames (True = attend)."""
+    i = torch.arange(T, device=device)
+    return (i[None, :] <= i[:, None] + delay)[None, None]
+
+
 def make_chunk_mask(T: int, chunk_size: int, num_left_chunks: int = -1, device=None) -> torch.Tensor:
     """WeNet-style chunk attention mask (reference ts_vad2_streaming/mask.py:137):
     a frame attends within its chunk and to `num_left_chunks` earlier chunks
@@ -143,9 +155,13 @@ class TransformerEncoder(nn.Module):
         self.max_len = max_len
         self.remat = remat
 
-    def forward(self, x, frame_mask=None, generator=None):
-        """(B, T, in_dim) → (B, T, d_model); frame_mask (B, T) 1 = valid."""
+    def forward(self, x, frame_mask=None, generator=None, attn_mask=None):
+        """(B, T, in_dim) → (B, T, d_model); frame_mask (B, T) 1 = valid;
+        attn_mask an extra (1|B, 1, T, T) bool mask (causal, chunk), True =
+        attend, combined with the padding mask as JAX's `attn_mask=`."""
         mask = None if frame_mask is None else make_padding_mask(frame_mask)
+        if attn_mask is not None:
+            mask = attn_mask if mask is None else mask & attn_mask
         h = self.input_norm(self.input_proj(x))
         if self.has_pos:
             pe = torch.from_numpy(sinusoidal_position_encoding(self.max_len, h.shape[-1])[: h.shape[1]])

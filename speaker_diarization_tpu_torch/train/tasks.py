@@ -8,8 +8,14 @@ chunk-masked forward (`make_streaming_tsvad_loss`, tasks.py:335-357), the
 speaker encoder's AAM-softmax cross-entropy (`make_spk_loss`,
 tasks.py:430-456), TS-VAD3's BCE from enrollment waveforms
 (`make_tsvad3_loss`, tasks.py:274-297), SOND's powerset CE from raw audio
-(`make_sond_loss_from_audio`, tasks.py:400-427) and EEND-VC's PIT plus
-speaker-table loss (`make_eend_vc_loss`, tasks.py:106-143). The other
+(`make_sond_loss_from_audio`, tasks.py:400-427), EEND-VC's PIT plus
+speaker-table loss (`make_eend_vc_loss`, tasks.py:106-143) and SSND's focal
+BCE plus ArcFace CE with its query construction (`make_ssnd_loss`,
+tasks.py:148-238), and EEND-M2F's Hungarian-matched set criterion
+(`make_m2f_loss`, tasks.py:382-397) and FS-EEND's PIT over its silence,
+speaker and pad channels plus the consistency MSE (`make_fs_eend_loss`,
+tasks.py:80-103) and OTS-VAD's BCE on the right half of a chunk after
+self-enrolling on the left (`make_ots_vad_loss`, tasks.py:301-332). The other
 families' losses come with their models.
 """
 
@@ -163,5 +169,102 @@ def make_eend_vc_loss(spk_loss_weight: float = 0.03):
         stats = M.diarization_error_stats(logits, labels_perm, fm)
         total = (1.0 - spk_loss_weight) * pit + spk_loss_weight * spk
         return total, {"pit_loss": pit.detach(), "spk_loss": spk.detach(), "frame_der": M.der_from_stats(stats)}
+
+    return loss_fn
+
+
+def make_ssnd_loss(arcface_weight: float = 0.01, bce_alpha: float = 0.75, bce_gamma: float = 2.0,
+                   mask_prob: float = 0.5):
+    """loss_fn for SSNDModel (reference ssnd_model.py:445-520): focal BCE
+    on the slots' VAD and ArcFace CE of their embeddings (models/ssnd.
+    ssnd_loss). Batch: audio (B, N), labels (B, S, T), spk_gids (B, S) (−1 =
+    empty slot), and optionally aux_embs (B, S, emb_dim), the slot queries.
+
+    Without aux_embs the queries follow the reference's training protocol
+    (ssnd_model.py:592-633), drawn from `generator`: a present slot gets
+    its E_all row; an empty slot gets e_non or, with probability 1/2, a
+    random distractor row, both with zero labels; in training, with
+    probability `mask_prob` one present slot of a sample has its query
+    replaced by the pseudo speaker e_pse, its labels kept, which teaches the
+    pseudo slot to detect a speaker not enrolled. The representation
+    decoder is teacher-forced with the labels in training and evaluation."""
+    from ..models.ssnd import ssnd_loss
+
+    def loss_fn(model, batch, generator, train):
+        gids = batch["spk_gids"].long()
+        if "aux_embs" in batch:
+            aux = batch["aux_embs"]
+        else:
+            B, S = gids.shape
+            dev = gids.device
+            E_all = model.E_all  # the queries carry E_all's gradient, as in JAX
+            present = gids >= 0
+            rand_gid = torch.randint(0, E_all.shape[0], (B, S), generator=generator, device=dev)
+            use_non = torch.rand((B, S), generator=generator, device=dev) < 0.5
+            aux_empty = torch.where(use_non[..., None], model.e_non[0], E_all[rand_gid])
+            aux = torch.where(present[..., None], E_all[torch.clamp_min(gids, 0)], aux_empty)
+            if train:
+                midx = torch.randint(0, S, (B,), generator=generator, device=dev)
+                rows = torch.arange(B, device=dev)
+                do_mask = (torch.rand((B,), generator=generator, device=dev) < mask_prob) & present[rows, midx]
+                aux = aux.clone()
+                aux[rows, midx] = torch.where(do_mask[:, None], model.e_pse[0], aux[rows, midx])
+        return ssnd_loss(model, batch["audio"], aux, batch["labels"], gids, generator, arcface_weight,
+                         bce_alpha, bce_gamma)
+
+    return loss_fn
+
+
+def make_m2f_loss():
+    """loss_fn for EENDM2FModel over EEND chunk batches (at subsampling 1):
+    the Hungarian-matched set criterion (reference eend_m2f/criterion.py:176)
+    on per-speaker targets (B, S, T) from the (B, T, S) frame labels."""
+    from ..models.eend_m2f import m2f_criterion
+
+    def loss_fn(model, batch, generator, train):
+        out = model(batch["audio"], generator=generator)
+        return m2f_criterion(out, batch["labels"].transpose(1, 2), model.cfg, frame_mask=batch.get("frame_mask"))
+
+    return loss_fn
+
+
+def make_fs_eend_loss(consistency_weight: float = 1.0):
+    """loss_fn for FSEENDModel (reference fs_eend/model.py:55-99): PIT-BCE
+    over the [silence ‖ speakers by first appearance ‖ pad] channels plus
+    the embedding-consistency MSE; aux carries both and the frame DER."""
+    from ..models.fs_eend import consistency_loss, fs_eend_labels
+
+    def loss_fn(model, batch, generator, train):
+        fm = batch["frame_mask"]
+        logits, emb = model(batch["audio"], fm, generator)
+        ch = fs_eend_labels(batch["labels"], fm)
+        pit, labels_perm, _ = L.pit_loss(logits, ch, fm)
+        cons = consistency_loss(emb, ch, fm)
+        stats = M.diarization_error_stats(logits, labels_perm, fm)
+        return pit + consistency_weight * cons, {
+            "pit_loss": pit.detach(), "consistency_loss": cons.detach(), "frame_der": M.der_from_stats(stats),
+        }
+
+    return loss_fn
+
+
+def make_ots_vad_loss():
+    """loss_fn for OTSVADModel over TS-VAD chunk batches of 2·rs_len: the
+    chunk splits into a left and a right half; the model self-enrolls on the
+    left half with its true labels and predicts the right (reference
+    ots_vad training: no enrollment embeddings). The 25 Hz labels are taken
+    every other frame to the model's 12.5 Hz; per-speaker BCE; aux carries
+    the frame DER."""
+
+    def loss_fn(model, batch, generator, train):
+        audio = batch["audio"]
+        labels = batch["labels"][:, ::2].transpose(1, 2)  # (B, S, T12)
+        n, t = audio.shape[1] // 2, labels.shape[-1] // 2
+        logits = model(audio[:, :n], audio[:, n:], labels[..., :t], generator)
+        y_right = labels[..., t : 2 * t]
+        T = min(logits.shape[-1], y_right.shape[-1])
+        logits, y_right = logits[..., :T], y_right[..., :T]
+        stats = M.diarization_error_stats(logits.transpose(1, 2), y_right.transpose(1, 2))
+        return L.standard_bce(logits, y_right), {"frame_der": M.der_from_stats(stats)}
 
     return loss_fn

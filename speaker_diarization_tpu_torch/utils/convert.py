@@ -51,6 +51,15 @@ projections; EEND-VC as EEND plus the `vec_head_i` Linears, the speaker
 table (nn.Embed `embedding` → `spk_table.weight`) and the scalars `alpha`
 and `beta`.
 
+`ssnd_from_flax` / `ssnd_to_flax`, `m2f_from_flax` / `m2f_to_flax`,
+`fs_eend_from_flax` / `fs_eend_to_flax` and `ots_vad_from_flax` /
+`ots_vad_to_flax` map the JAX SSNDModel (its CAM++ extractor as above; the
+parameters it holds directly, pos_emb, E_all, e_pse, e_non, det_query and
+rep_query, as they are), EENDM2FModel (`query_emb` as it is; the
+ConvTransposes `up2`/`up5` flipped), FSEENDModel (the EEND encoder as
+above) and OTSVADModel (its nn.RNN LSTMs' `cell` gates as the EDA's);
+their other modules map by name, attention kernels as DenseGeneral.
+
 `conformer`, the ECAPA/ResNet34/SimAM speech encoders, the TS-VAD
 `conformer` and BiLSTM (`lstm_fwd`/`lstm_bwd` for flax's
 OptimizedLSTMCell_0/_1) backends and the upsampling `speech_down` go
@@ -219,7 +228,8 @@ def _mamba2_backend_from_flax(params: dict, prefix: str) -> Dict[str, torch.Tens
 
 
 _ATT = ("query", "key", "value")
-_TRANSPOSED = "up"  # the ConvTranspose of models/tsvad.SpeechFeatUpsample
+# the ConvTransposes: models/tsvad.SpeechFeatUpsample's `up`, models/eend_m2f's `up2` and `up5`
+_TRANSPOSED = ("up", "up2", "up5")
 
 
 def named_from_flax(params: dict, stats: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -235,7 +245,7 @@ def named_from_flax(params: dict, stats: dict, prefix: str = "") -> Dict[str, to
                 w = w.reshape(w.shape[0], -1).T
             elif mod[-1] == "out" and w.ndim == 3:  # (H, Dh, D)
                 w = w.reshape(-1, w.shape[-1]).T
-            elif mod[-1] == _TRANSPOSED:
+            elif mod[-1] in _TRANSPOSED:
                 w = w.transpose(1, 2, 0)[..., ::-1]
             else:
                 w = _kernel(w)
@@ -270,7 +280,7 @@ def named_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int = 0) -> di
             _put(out["params"], (*mod, "kernel"), w.T.reshape(w.shape[1], num_heads, -1))
         elif mod[-1] == "out" and num_heads:  # (D, H·Dh) → (H, Dh, D)
             _put(out["params"], (*mod, "kernel"), w.T.reshape(num_heads, -1, w.shape[0]))
-        elif mod[-1] == _TRANSPOSED:
+        elif mod[-1] in _TRANSPOSED:
             _put(out["params"], (*mod, "kernel"), w[..., ::-1].transpose(2, 0, 1))
         else:  # Dense, Conv1d, Conv2d
             _put(out["params"], (*mod, "kernel"), w.transpose({2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}[w.ndim]))
@@ -294,9 +304,7 @@ def _bilstm_to_flax(parts: list, w: np.ndarray, params: dict, top: str) -> None:
         _put(params, (top, "proj", "kernel" if leaf == "weight" else "bias"), w.T if leaf == "weight" else w)
         return
     cell = {v: k for k, v in _BILSTM.items()}[mod]
-    kind = "i" if parts[1] == "input" else "h"
-    for g, wg in zip(_GATES, np.split(w, 4, axis=0)):
-        _put(params, (top, cell, kind + g, "kernel" if leaf == "weight" else "bias"), wg.T if leaf == "weight" else wg)
+    _lstm_to_flax(params, (top, cell), parts[1], leaf, w)
 
 
 def _backend_from_flax_any(params: dict, stats: dict, prefix: str) -> Dict[str, torch.Tensor]:
@@ -592,6 +600,14 @@ def _encoder_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _lstm_to_flax(params: dict, path: Tuple[str, ...], linear: str, leaf: str, w: np.ndarray) -> None:
+    """One LSTM Linear (`input` or `hidden`) split into the cell's four gate
+    Denses (ii..io, hi..ho) under `path`; the inverse of `_lstm_from_flax`."""
+    kind = "i" if linear == "input" else "h"
+    for g, wg in zip(_GATES, np.split(w, 4, axis=0)):
+        _put(params, (*path, kind + g, "kernel" if leaf == "weight" else "bias"), wg.T if leaf == "weight" else wg)
+
+
 def _lstm_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
     """flax OptimizedLSTMCell params (ii..io, hi..ho) → LSTM input/hidden Linears."""
     return {
@@ -650,10 +666,7 @@ def eend_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
             path, w = _layer_to_flax(parts[1:], w, num_heads)
             _put(params, ("encoder", *path), w)
         else:  # eda.{enc,dec}_lstm.{input,hidden}.<leaf>: split the four gates
-            kind = "i" if parts[2] == "input" else "h"
-            for g, wg in zip(_GATES, np.split(w, 4, axis=0)):
-                _put(params, ("eda", parts[1], kind + g, "kernel" if leaf == "weight" else "bias"),
-                     wg.T if leaf == "weight" else wg)
+            _lstm_to_flax(params, ("eda", parts[1]), parts[2], leaf, w)
     out = {"params": params}
     if conformer:
         enc = named_to_flax(conformer, num_heads)
@@ -760,4 +773,128 @@ def eend_vc_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict
             _put(params, ("spk_table", "embedding"), w)
         elif top in ("alpha", "beta"):
             params[top] = np.asarray(w, np.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SSND, EEND-M2F, FS-EEND, OTS-VAD
+# ---------------------------------------------------------------------------
+
+
+def _raw_from_flax(p: dict, names) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """(the arrays a module holds directly, flax `self.param`, as tensors of
+    the same name and shape; the remaining params)."""
+    raw = {n: _t(p[n]) for n in names if n in p}
+    return raw, {k: v for k, v in p.items() if k not in raw}
+
+
+def ssnd_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX SSNDModel variables ({'params', 'batch_stats'}) → SSNDModel
+    state_dict: the CAM++ extractor as `campplus_from_flax`, the raw
+    parameters (pos_emb, E_all, e_pse, e_non, det_query, rep_query) as they
+    are, every other module by name."""
+    from ..models.ssnd import RAW_PARAMS
+
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd, rest = _raw_from_flax(p, RAW_PARAMS)
+    ext = campplus_from_flax(rest.pop("extractor"), s.get("extractor", {}))
+    sd.update({f"extractor.{k}": v for k, v in ext.items()})
+    sd.update(named_from_flax(rest, {k: v for k, v in s.items() if k != "extractor"}))
+    return sd
+
+
+def _split_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int, raw_names, campplus_tops=()) -> dict:
+    """State-dict entries → JAX variables: the raw parameters as they are,
+    CAM++ modules (`campplus_tops`) through `campplus_to_flax`, the rest by name."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    named: Dict[str, torch.Tensor] = {}
+    camp: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, t in state_dict.items():
+        top = name.split(".")[0]
+        if name in raw_names:
+            out["params"][name] = np.ascontiguousarray(t.detach().cpu().float().numpy())
+        elif top in campplus_tops:
+            camp.setdefault(top, {})[name[len(top) + 1:]] = t
+        else:
+            named[name] = t
+    for coll, tree in named_to_flax(named, num_heads).items():
+        out[coll].update(tree)
+    for top, sd in camp.items():
+        tree = campplus_to_flax(sd)
+        for coll in ("params", "batch_stats"):
+            if tree[coll]:
+                out[coll][top] = tree[coll]
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
+
+
+def ssnd_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """SSNDModel state_dict → JAX variables as numpy; the inverse of `ssnd_from_flax`."""
+    from ..models.ssnd import RAW_PARAMS
+
+    return _split_to_flax(state_dict, num_heads, RAW_PARAMS, ("extractor",))
+
+
+def m2f_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX EENDM2FModel variables ({'params'}) → EENDM2FModel state_dict:
+    `query_emb` as it is, a transformer encoder as `eend_from_flax` maps
+    one, every other module by name (the ConvTransposes `up2`/`up5` flipped
+    in time)."""
+    sd, rest = _raw_from_flax(variables["params"], ("query_emb",))
+    if "layer_0" in rest["encoder"]:
+        sd.update(_encoder_from_flax(rest.pop("encoder"), "encoder"))
+    sd.update(named_from_flax(rest, {}))
+    return sd
+
+
+def m2f_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """EENDM2FModel state_dict → JAX variables as numpy; the inverse of `m2f_from_flax`."""
+    transformer = any(n.startswith("encoder.layer_") for n in state_dict)
+    enc = {n: t for n, t in state_dict.items() if transformer and n.startswith("encoder.")}
+    out = _split_to_flax({n: t for n, t in state_dict.items() if n not in enc}, num_heads, ("query_emb",))
+    if enc:
+        out["params"].update(eend_to_flax(enc, num_heads)["params"])
+    return out
+
+
+def fs_eend_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX FSEENDModel variables ({'params'}) → FSEENDModel state_dict: the
+    encoder as `eend_from_flax` maps one, the conv, `convert` and the fusion
+    layers by name."""
+    p = dict(variables["params"])
+    sd = _encoder_from_flax(p.pop("encoder"), "encoder")
+    sd.update(named_from_flax(p, {}))
+    return sd
+
+
+def fs_eend_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """FSEENDModel state_dict → JAX variables as numpy; the inverse of `fs_eend_from_flax`."""
+    enc = {n: t for n, t in state_dict.items() if n.startswith("encoder.")}
+    params = named_to_flax({n: t for n, t in state_dict.items() if n not in enc}, num_heads)["params"]
+    params.update(eend_to_flax(enc, num_heads)["params"])
+    return {"params": params}
+
+
+_OTS_LSTMS = ("lstm_fwd", "lstm_bwd")
+
+
+def ots_vad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX OTSVADModel variables ({'params', 'batch_stats'}) → OTSVADModel
+    state_dict: the two nn.RNN(OptimizedLSTMCell) as LSTMs (their `cell`
+    gates stacked), every other module (ResNet34 included) by name."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = named_from_flax({k: v for k, v in p.items() if k not in _OTS_LSTMS}, s)
+    for name in _OTS_LSTMS:
+        sd.update(_lstm_from_flax(p[name]["cell"], name))
+    return sd
+
+
+def ots_vad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
+    """OTSVADModel state_dict → JAX variables as numpy; the inverse of `ots_vad_from_flax`."""
+    out = _split_to_flax({n: t for n, t in state_dict.items() if n.split(".")[0] not in _OTS_LSTMS}, num_heads, ())
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        if parts[0] in _OTS_LSTMS:
+            _lstm_to_flax(out["params"], (parts[0], "cell"), parts[1], parts[-1], t.detach().cpu().float().numpy())
     return out

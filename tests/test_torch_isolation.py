@@ -77,6 +77,26 @@ e = EendEdaModel(d_model=16, n_layers=1, n_heads=2, d_ff=32, max_attractors=3, d
 with torch.no_grad():
     lo, ex = e.infer(torch.from_numpy((0.1 * rng.standard_normal((2, 8000))).astype(np.float32)))
 assert lo.shape == (2, 10, 3) and ex.shape == (2, 3) and torch.isfinite(lo).all(), lo.shape
+from speaker_diarization_tpu_torch.models.eend_m2f import EENDM2FModel, M2FConfig
+from speaker_diarization_tpu_torch.models.fs_eend import FSEENDModel
+from speaker_diarization_tpu_torch.models.ots_vad import OTSVADConfig, OTSVADModel
+from speaker_diarization_tpu_torch.models.ssnd import SSNDConfig, SSNDModel
+a8 = torch.from_numpy((0.1 * rng.standard_normal((2, 8000))).astype(np.float32))
+with torch.no_grad():
+    s = SSNDModel(SSNDConfig(feat_dim=24, emb_dim=16, d_model=16, n_heads=2, d_ff=16, num_layers=1, vad_out_len=25,
+                             pos_emb_dim=8, max_seq_len=60, n_all_speakers=5, sample_rate=8000, extractor_blocks=(1, 1)),
+                  device="cpu")
+    vad, emb = s(a8, torch.zeros(2, 4, 16))
+    assert vad.shape == (2, 4, 25) and emb.shape == (2, 4, 16) and torch.isfinite(vad).all()
+    out = EENDM2FModel(M2FConfig(num_queries=4, d_model=16, d_ff=16, enc_layers=1, dec_layers=1, conv_kernel=5),
+                       device="cpu")(a8)
+    assert out["mask_logits"].shape == (2, 4, 100) and torch.isfinite(out["mask_logits"]).all()
+    lo, _ = FSEENDModel(d_model=16, enc_layers=1, dec_layers=1, n_heads=2, d_ff=16, dec_d_ff=16, device="cpu")(a8)
+    assert lo.shape == (2, 10, 4) and torch.isfinite(lo).all()
+    o = OTSVADModel(OTSVADConfig(d_model=16, conformer_layers=1, n_heads=2, d_ff=16, lstm_hidden=8, feat_dim=24,
+                                 sample_rate=8000, encoder_m_channels=4, encoder_blocks=(1, 1, 1, 1)), device="cpu")
+    lo = o(a8, a8, torch.ones(2, 4, 13))
+    assert lo.shape == (2, 4, 13) and torch.isfinite(lo).all()
 assert not any(k.split(".")[0] in {sorted(FORBIDDEN)!r} and sys.modules[k] is not None for k in sys.modules)
 print("ok")
 """
@@ -167,6 +187,31 @@ def test_fcm_wrapper_runs_its_twin_for_cpu_tensors():
     got = fcm.fcm_cuda(x, flat)
     torch.testing.assert_close(got, fcm.fcm_folded_torch(x, flat, torch.float32), rtol=0, atol=0)
     assert got.shape == (2, 30, 320) and fcm.fcm_cuda.launches == launches
+
+
+def test_slice8_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """SSND, EEND-M2F, FS-EEND and OTS-VAD run on the card unless the caller
+    asks for the CPU: models and CLI verbs raise without CUDA."""
+    from speaker_diarization_tpu_torch.cli.main import main as port_cli
+    from speaker_diarization_tpu_torch.models.eend_m2f import EENDM2FModel, M2FConfig
+    from speaker_diarization_tpu_torch.models.fs_eend import FSEENDModel
+    from speaker_diarization_tpu_torch.models.ots_vad import OTSVADConfig, OTSVADModel
+    from speaker_diarization_tpu_torch.models.ssnd import SSNDConfig, SSNDModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: SSNDModel(SSNDConfig(d_model=16, n_heads=2, num_layers=1, extractor_blocks=(1, 1)), **kw),
+                 lambda **kw: EENDM2FModel(M2FConfig(d_model=16, enc_layers=1, dec_layers=1), **kw),
+                 lambda **kw: FSEENDModel(d_model=16, enc_layers=1, dec_layers=1, **kw),
+                 lambda **kw: OTSVADModel(OTSVADConfig(d_model=16, conformer_layers=1, encoder_blocks=(1, 1, 1, 1)),
+                                          **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(device="cuda")
+        assert make(device="cpu").device == torch.device("cpu")
+    for fam in ("ssnd", "eend_m2f", "fs_eend", "ots_vad"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli(["train", "--family", fam, "--train-dir", str(tmp_path), "--exp-dir", str(tmp_path)])
 
 
 def test_spk_entry_points_raise_without_cuda(monkeypatch, tmp_path):
