@@ -79,6 +79,13 @@ each with the launch counts set to 0 just before and read just after:
   (ResNet34 3,4,6,3): fbank 1 a 4 s forward (the online decode's embed and
   score), 2 a step on 4 s + 4 s halves; and K1′ at EEND-M2F's front-end
   (16, 40000) at subsampling 1 and context 0;
+- the neural VAD at NeuralVADConfig() (fp32, batch 16 × 30 s at 16 kHz):
+  logmel 1 a forward and a step; the learned enhancer at EnhancerConfig()
+  (bf16, batch 16 × 2 s at 8 kHz): no kernel; each held to its plain twin,
+  five adam steps on one batch must lower the loss, forward and step timed
+  with the profiler's busy share; and K1′ at the VAD's front-end, (16,
+  480000) at 16 kHz 400/160 and (16, 240000) at 8 kHz 200/80, 40 mels, no
+  mean-norm;
 then the CLI: `infer --family tsvad` + `score` from flax-layout weights,
 `train --family tsvad` (Mamba, two comma-separated --train-dir corpora,
 batch 64 × 4 s, bf16, with validation and checkpoints) followed by `infer
@@ -95,14 +102,19 @@ exported encoder, 4 steps each, each followed by `infer --threshold-sweep`
 and `score`), the torch leaderboard's ecapa stage (4 steps, `infer
 --threshold-sweep --cder`, `score --cder`), its sond, tsvad3 and eend_vc
 stages (4 steps each, `infer --threshold-sweep`, `score`), `simulate-meetings` and
-`config-dump` in its three formats, and its m2f, fs_eend, ssnd (with
---real-data-dir and --ssnd-rescore) and ots_vad stages on the same corpus,
-each stage's output checked. Each phase prints one line, with the
+`config-dump` in its three formats, its m2f, fs_eend, ssnd (with
+--real-data-dir and --ssnd-rescore) and ots_vad stages, its vbx stage
+(`estimate-plda`, then `cluster --method vbx`, and `spectral` and `umap`,
+each scored), `train --family vad` → `export-vad` → `cluster --sad
+neural`, and its enhancer_eval stage (`train --family enhance` →
+`export-enhancer` → the TS-VAD `infer` with `--set enhancer=neural:…`) on
+the same corpus, each stage's output checked. Each phase prints one line, with the
 seconds since the start, and raises on failure. The CLI verbs of the main
 path run as `python -m speaker_diarization_tpu_torch.cli` processes; those
 of the recipe chain call the same entry point in this process. The
-last lines are the kernels' JSON record, the card's name and power limit,
-and {"ok": true, "device": ...}.
+last lines are the kernels' JSON record (each kernel's launch sites: counts
+of one forward or step, and of a whole run for the CLI verbs of the recipe
+chain), the card's name and power limit, and {"ok": true, "device": ...}.
 Needs one CUDA device; imports nothing of JAX.
 """
 
@@ -682,6 +694,22 @@ def cli(*args):
     return out.getvalue()
 
 
+def kernel_wrappers():
+    """Every kernel's wrapper by the name of its launch count."""
+    from speaker_diarization_tpu_torch.kernels import cam_block, fbank, fcm, selective_scan
+
+    return {"fbank": fbank.fbank_cuda, "logmel": fbank.logmel_cuda, "cam_block": cam_block.cam_dense_block_cuda,
+            "selective_scan_fwd": selective_scan.selective_scan_fwd,
+            "selective_scan_fwd_states": selective_scan.selective_scan_fwd_states,
+            "selective_scan_bwd": selective_scan.selective_scan_bwd, "fcm": fcm.fcm_cuda}
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count so far (differences of two reads
+    count the launches of what ran between them)."""
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
 def read_metrics(exp):
     with open(os.path.join(exp, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -692,7 +720,9 @@ def read_metrics(exp):
 def recipe_chain():
     """The hermetic TS-VAD recipe's stages 1-5 through the port's CLI at the
     recipe's widths (8 kHz, 80 bins, CAM++ 12/24/16, batch 64), a few steps
-    each, on a small simulated corpus; each stage's output is checked."""
+    each, on a small simulated corpus, then the leaderboard's other stages
+    on it; each stage's output is checked. → the kernels' launches over each
+    whole run of `cluster`, `estimate-plda` and the enhanced TS-VAD `infer`."""
     import numpy as np
 
     from speaker_diarization_tpu_torch.data.rttm import read_rttm
@@ -844,6 +874,103 @@ def recipe_chain():
               f"--cder): {time.perf_counter() - t0:.1f} s; best threshold {best.group(1)}: DER/MS/FA/SC {lines[-2]}, "
               f"{lines[-1]}")
 
+        # the leaderboard's vbx stage (recipes/hermetic_leaderboard_torch.sh):
+        # a PLDA from the exported encoder's embeddings of the labelled voice
+        # pool, then `cluster` with oracle SAD on the test mixtures by VBx,
+        # and by spectral and UMAP + HDBSCAN* clustering, each scored
+        cli_sites = {}
+        plda = os.path.join(tmp, "plda.npz")
+        t0 = time.perf_counter()
+        c0 = launch_counts()
+        cli("estimate-plda", "--data-dir", f"{pool}/src", "--out", plda, "--encoder", "campplus", "--encoder-ckpt", enc,
+            "--rate", "8000", "--plda-dim", "64")
+        cli_sites["estimate_plda"] = {k: v - c0[k] for k, v in launch_counts().items()}
+        with np.load(plda) as z:
+            pshapes = {k: z[k].shape for k in z.files}
+            pfinite = all(np.isfinite(z[k]).all() for k in z.files)
+        phase("cli", f"estimate-plda (CAM++ 12/24/16 embeddings of 1.5 s windows, --plda-dim 64): {pshapes}, "
+              f"launches {cli_sites['estimate_plda']}, {time.perf_counter() - t0:.1f} s")
+        if not pfinite or pshapes.get("tr", (0, 0))[1] != 192 or not 1 <= pshapes["psi"][0] <= 64 \
+                or cli_sites["estimate_plda"]["fbank"] < 1:
+            raise AssertionError(f"estimate-plda wrote a bad PLDA: {pshapes}, finite {pfinite}")
+        for method in ("vbx", "spectral", "umap"):
+            hyp = os.path.join(tmp, f"hyp_cluster_{method}.rttm")
+            t0 = time.perf_counter()
+            c0 = launch_counts()
+            out = cli("cluster", "--data-dir", test, "--out", hyp, "--method", method, "--plda", plda, "--sad",
+                      "oracle", "--encoder", "campplus", "--encoder-ckpt", enc, "--rate", "8000", "--ref",
+                      f"{test}/rttm", "-c", "0.25")
+            counts = {k: v - c0[k] for k, v in launch_counts().items()}
+            cli_sites[f"cluster_{method}"] = counts
+            der = re.search(r"DER ([0-9.]+)%, MS ([0-9.]+)%, FA ([0-9.]+)%, SC ([0-9.]+)%", out)
+            n_spk = {t.rec: set() for t in read_rttm(hyp)}
+            for t in read_rttm(hyp):
+                n_spk[t.rec].add(t.speaker)
+            phase("cli", f"cluster --method {method} --sad oracle (test): DER/MS/FA/SC "
+                  f"{'/'.join(der.groups()) if der else None}, speakers {sorted(len(v) for v in n_spk.values())}, "
+                  f"launches {counts}, {time.perf_counter() - t0:.1f} s")
+            if not der or not n_spk or counts["fbank"] < 1:
+                raise AssertionError(f"cluster --method {method} went wrong:\n{out}")
+
+        # the neural VAD: `train --family vad` (8 kHz 200/80, 40 mels; the
+        # EEND chunks at subsampling 1, 500 frames = 5 s), `export-vad`, then
+        # `cluster --sad neural` with it
+        vad_exp, vad_npz = os.path.join(tmp, "vad"), os.path.join(tmp, "vad.npz")
+        vad_sets = ["sample_rate=8000", "chunk_frames=500", "batch_size=16", "num_steps=4", "optimizer=adam",
+                    "schedule=poly", "learning_rate=1e-3", "warmup_steps=1", "log_every=2", "valid_every=2"]
+        t0 = time.perf_counter()
+        cli("train", "--family", "vad", "--train-dir", os.path.join(tmp, "train", "data"), "--valid-dir",
+            os.path.join(tmp, "valid", "data"), "--exp-dir", vad_exp,
+            *[a for kv in vad_sets for a in ("--set", kv)])
+        trains, valids, ckpts = read_metrics(vad_exp)
+        if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in trains + valids) \
+                or not ckpts:
+            raise AssertionError(f"CLI train --family vad did not log, validate and checkpoint: {trains}, {valids}")
+        t_train = time.perf_counter() - t0
+        cli("export-vad", "--exp-dir", vad_exp, "--out", vad_npz)
+        hyp = os.path.join(tmp, "hyp_cluster_neural.rttm")
+        c0 = launch_counts()
+        out = cli("cluster", "--data-dir", test, "--out", hyp, "--sad", "neural", "--vad-ckpt", vad_npz,
+                  "--encoder", "campplus", "--encoder-ckpt", enc, "--rate", "8000", "--ref", f"{test}/rttm")
+        counts = {k: v - c0[k] for k, v in launch_counts().items()}
+        cli_sites["cluster_neural_sad"] = counts
+        der = re.search(r"DER ([0-9.]+)%", out)
+        phase("cli", f"train --family vad (fp32, batch 16 x 5 s, 4 steps): {t_train:.1f} s, last log {trains[-1]}; "
+              f"export-vad; cluster --sad neural (test): {'DER ' + der.group(1) + '%' if der else out[-200:]} "
+              f"(4 steps of training), launches {counts}, {time.perf_counter() - t0:.1f} s")
+        if not der or counts["logmel"] != 3:  # one forward of neural_sad per test recording
+            raise AssertionError(f"cluster --sad neural went wrong ({counts}):\n{out}")
+
+        # the leaderboard's enhancer_eval stage: `train --family enhance` at its
+        # flags (4 steps), `export-enhancer`, then the stage-4 TS-VAD's
+        # threshold sweep on the test mixtures with every chunk enhanced
+        enh_exp, enh_npz = os.path.join(tmp, "enh"), os.path.join(tmp, "enhancer.npz")
+        enh_sets = ["sample_rate=8000", "batch_size=16", "num_steps=4", "optimizer=adam", "schedule=poly",
+                    "learning_rate=2e-4", "warmup_steps=200", "bf16=true", "log_every=2", "valid_every=100000"]
+        t0 = time.perf_counter()
+        cli("train", "--family", "enhance", "--train-dir", f"{pool}/src", "--noise-dir", f"{pool}/noise",
+            "--exp-dir", enh_exp, *[a for kv in enh_sets for a in ("--set", kv)])
+        trains, _, ckpts = read_metrics(enh_exp)
+        if len(trains) != 2 or not all(math.isfinite(r["loss"]) for r in trains) or not ckpts:
+            raise AssertionError(f"CLI train --family enhance did not log and checkpoint: {trains}, {ckpts}")
+        t_train = time.perf_counter() - t0
+        cli("export-enhancer", "--exp-dir", enh_exp, "--out", enh_npz)
+        hyp = os.path.join(tmp, "hyp_enh.rttm")
+        c0 = launch_counts()
+        out = cli("infer", "--family", "tsvad", "--data-dir", test, "--exp-dir", ts_exp, "--emb-store",
+                  stores["test"], "--out", hyp, "--threshold-sweep", "--ref", f"{test}/rttm", "--set",
+                  f"enhancer=neural:{enh_npz}", "--set", "enhance_prob=1.0")
+        counts = {k: v - c0[k] for k, v in launch_counts().items()}
+        cli_sites["enhancer_eval_infer"] = counts
+        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", out)
+        n_rttm = sum(fn.startswith("hyp_enh.rttm_") for fn in os.listdir(tmp))
+        phase("cli", f"train --family enhance (bf16, batch 16 x 2 s, 4 steps): {t_train:.1f} s, last log "
+              f"{trains[-1]}; export-enhancer; infer --family tsvad --set enhancer=neural:… --set enhance_prob=1.0 "
+              f"--threshold-sweep (test): {n_rttm} RTTMs, best threshold {best.group(1) if best else None} DER "
+              f"{best.group(2) if best else None}%, launches {counts}, {time.perf_counter() - t0:.1f} s")
+        if not best or n_rttm != 18 or counts["fbank"] < 1:
+            raise AssertionError(f"the enhanced TS-VAD infer went wrong ({counts}):\n{out}")
+
         # the torch leaderboard's sond, tsvad3, eend_vc, m2f, fs_eend, ssnd and
         # ots_vad stages (recipes/hermetic_leaderboard_torch.sh), flag for flag
         # at 4 steps, each followed by the threshold sweep and the score, all
@@ -966,6 +1093,7 @@ def recipe_chain():
                 raise AssertionError(f"CLI score printed no DER line for {name}: {line!r}")
             phase("cli", f"infer {name} --threshold-sweep (test): {n_rttm} RTTMs, best threshold {best.group(1)}, "
                   f"DER/MS/FA/SC {line} (4 steps of training), {time.perf_counter() - t0:.1f} s")
+        return cli_sites
 
 
 def main() -> int:
@@ -1014,16 +1142,19 @@ def main() -> int:
     records = {}
 
     # ---- K1: fbank kernel vs its plain twin (fp32), at the TS-VAD shape, the
-    # recipe's 8 kHz front end and 48 kHz (n_fft 2048: a frame of two warps);
-    # two runs must give the same bits; the previous kernel (build/prev,
-    # where a call put it) is timed beside it at 16 and 8 kHz
+    # recipe's 8 kHz front end, 48 kHz (n_fft 2048: a frame of two warps) and
+    # the embedding batches of `cluster` and `estimate-plda` (64 windows of
+    # 1.5 s at 8 kHz, and a short last batch); two runs must give the same
+    # bits; the previous kernel (build/prev, where a call put it) is timed
+    # beside it at 16 and 8 kHz
     prev1 = prev_fbank(prev_fbank_build)
     phase("prev", "the previous K1/K1′ built from build/prev/fbank.cu for timing" if prev1 else
           "no build/prev/fbank.cu: the previous K1/K1′ is not timed")
     for inst, lines in ptxas_props(_build.build_log("fbank"), "fbank_kernel").items():
         phase("K1", f"fbank_kernel<{inst}> (n_fft {2 * int(inst.split(',')[0])}): {' | '.join(lines)}")
     k1lib = K1._lib()
-    for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000)), (48000, 80, (8, 96000))):
+    for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000)), (48000, 80, (8, 96000)),
+                              (8000, 80, (64, 12000)), (8000, 80, (20, 12000))):
         x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
         win, shift, n_fft = FE.frame_params(sr)
         T = 1 + (shape[1] - win) // shift
@@ -1031,7 +1162,7 @@ def main() -> int:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = K1.launch_plan(shape[0], T, win, shift, n_fft, n_mels, mel_len, n_sm)
         c_smem = k1lib.sdt_fbank_smem_bytes(plan.frames_per_tile, win, shift, n_fft, n_mels, mel_len)
-        if c_smem != plan.smem or plan.grid < 132:
+        if c_smem != plan.smem or plan.grid < min(132, plan.tiles):
             raise AssertionError(f"K1 plan at {shape}: {plan}, kernel smem {c_smem}")
         got = K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels)
         again = K1.fbank_cuda(x, sample_rate=sr, num_mel_bins=n_mels)
@@ -1106,6 +1237,24 @@ def main() -> int:
           f"{err:.3e} (bar 2e-3)")
     if got.shape != (16, 500, 23) or not err <= 2e-3:
         raise AssertionError(f"K1′ at EEND-M2F's front-end disagrees with its twin: {tuple(got.shape)}, {err}")
+    # the neural VAD's front-end: neural_sad's batch of 30 s chunks at 16 kHz
+    # 400/160 (NeuralVADConfig()) and at 8 kHz 200/80 (`cluster --sad neural
+    # --rate 8000`), 40 mels, no mean-norm; 2e-3 bar, two runs the same bits
+    for sr, fs, sh in ((16000, 400, 160), (8000, 200, 80)):
+        xv = (0.1 * torch.randn((16, 30 * sr), generator=gen)).to(dev)
+        T = FE.count_frames(30 * sr, sh)
+        got = K1.logmel_cuda(xv, T, fs, sh, sr, 40)
+        again = K1.logmel_cuda(xv, T, fs, sh, sr, 40)
+        ref = FE.logmel_frames_torch(xv, T, fs, sh, sr, 40, mean_norm=False)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        err = (got - ref).abs().max().item()
+        k1p["err"] = max(k1p["err"], err)
+        phase("K1′", f"neural VAD front-end {sr} Hz/{fs}/{sh}/40 (16, {30 * sr}) -> {tuple(got.shape)}: max-abs "
+              f"{err:.3e} (bar 2e-3), two runs bitwise equal: {same}")
+        if got.shape != (16, T, 40) or not (err <= 2e-3 and same and torch.isfinite(got).all()):
+            raise AssertionError(f"K1′ at the VAD's front-end ({sr} Hz) disagrees with its twin: {err}, same {same}")
+        del xv, got, again, ref
 
     # ---- K2: dense-block kernel vs its plain twin, the three flagship blocks.
     # bf16 at the main shape: the tensor-core kernel with T split over a
@@ -1349,16 +1498,13 @@ def main() -> int:
     from speaker_diarization_tpu_torch.models import mamba as MB
     from speaker_diarization_tpu_torch.ops.mamba_scan import selective_scan_sequential
 
-    wrappers = {"fbank": K1.fbank_cuda, "logmel": K1.logmel_cuda, "cam_block": K2.cam_dense_block_cuda,
-                "selective_scan_fwd": K3.selective_scan_fwd, "selective_scan_fwd_states": K3.selective_scan_fwd_states,
-                "selective_scan_bwd": K3.selective_scan_bwd, "fcm": K4.fcm_cuda}
+    wrappers = kernel_wrappers()
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
 
-    def read_counts():
-        return {k: fn.launches for k, fn in wrappers.items()}
+    read_counts = launch_counts
 
     def want(**nonzero):
         return {k: nonzero.get(k, 0) for k in wrappers}
@@ -2000,6 +2146,62 @@ def main() -> int:
         del smodel7, rtrainer, sb
         torch.cuda.empty_cache()
 
+    # ---- the ninth slice at full width: the neural VAD (NeuralVADConfig(),
+    # fp32 as the vad family trains, batch 16 x 30 s at 16 kHz, neural_sad's
+    # chunks: logmel 1 a forward and a step, then 3,000 LSTM steps) and the
+    # learned enhancer (EnhancerConfig(), bf16 as the leaderboard's enhance
+    # stage trains, batch 16 x 2 s at 8 kHz: no kernel, the STFT, convs and
+    # GRUs are plain torch as in JAX). The VAD's forward is held to its plain
+    # twin (fp32 max-abs), each forward's launches are checked, five adam
+    # steps on one batch must lower the loss, and the forward and the train
+    # step are timed with the profiler's busy share
+    from speaker_diarization_tpu_torch.bench import SLICE_DTYPES, slice_audio
+
+    for fam, per_pass, lr9 in (("vad", want(logmel=1), 1e-3), ("enhance", want(), 3e-4)):
+        bf16 = SLICE_DTYPES.get(fam, "bf16") == "bf16"
+        model9, _ = slice_model(fam, dev, seed=31, bf16=bf16)
+        sb = make_slice_batches(fam, model9, 3, seed=32, device=dev)
+        fwd = slice_forward(fam, model9)
+        with torch.no_grad():
+            fwd(sb[0])  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            out = fwd(sb[1])
+            torch.cuda.synchronize()
+            got_launches = read_counts()
+            slice_launches[fam] = got_launches
+            phase(fam, f"{'bf16' if bf16 else 'fp32'} {tuple(slice_audio(fam, sb[1]).shape)} -> {tuple(out.shape)}; "
+                  f"launches {got_launches}")
+            if got_launches != per_pass or not torch.isfinite(out).all():
+                raise AssertionError(f"{fam} forward launches {got_launches}, want {per_pass}, or non-finite")
+            if per_pass != want():  # the enhancer launches no kernel: its twin would run the same code
+                ref = plain_forward(fwd, sb[1])
+                err, sc = (out - ref).abs().max().item(), max(1.0, ref.abs().max().item())
+                phase(fam, f"fp32 output vs plain twin: max-abs {err:.3e} (bar 1e-3 x {sc:.3f})")
+                if bf16 or not err <= 1e-3 * sc:
+                    raise AssertionError(f"fp32 {fam} forward disagrees with the plain twin: {err} (bf16 {bf16})")
+            table, dev_ms = profile(lambda: fwd(sb[0]), n=1, family=fam)
+        tp9 = slice_throughput(fam, model9, sb, iters=2 if fam == "vad" else 10, reps=3)
+        phase("throughput", f"{fam} {'bf16' if bf16 else 'fp32'} forward, batch {tuple(slice_audio(fam, sb[0]).shape)}: "
+              f"{tp9['ms_per_forward']:.3f} ms/forward, {tp9['audio_s_per_s']:.1f} audio-s/s; profiler device time "
+              f"{dev_ms:.3f} ms/forward, busy share {dev_ms / tp9['ms_per_forward']:.3f} (checksum "
+              f"{tp9['witness']:.6e}, reps {[round(r, 4) for r in tp9['reps_s']]})")
+        fixed = Trainer(model9, slice_loss(fam), TrainerConfig(optimizer="adam", schedule="const", learning_rate=lr9))
+        losses9, tl9 = fixed_batch_steps(fixed, sb[0], per_pass, fam)
+        phase("train", f"{fam}: 5 adam steps at {lr9:g} on one batch ({'bf16' if bf16 else 'fp32'}): losses "
+              f"{[round(v, 5) for v in losses9]}; launches per step {tl9}")
+        del fixed
+        model9, _ = slice_model(fam, dev, seed=31, bf16=bf16)
+        rtrainer = slice_recipe_trainer(fam, model9)
+        tt9 = train_throughput(rtrainer, sb, iters=1 if fam == "vad" else 3, reps=2 if fam == "vad" else 3)
+        _, step_ms = profile(lambda: rtrainer.train_step(sb[0]), n=1, family=fam)
+        phase("throughput", f"{fam} train step ({'CLI defaults' if fam == 'vad' else 'leaderboard settings'}, "
+              f"{'bf16' if bf16 else 'fp32'}, batch {tuple(slice_audio(fam, sb[0]).shape)}): {tt9['ms_per_step']:.3f} "
+              f"ms/step; profiler device time {step_ms:.3f} ms/step, busy share {step_ms / tt9['ms_per_step']:.3f} "
+              f"(loss checksum {tt9['witness']:.6e}, reps {[round(r, 4) for r in tt9['reps_s']]})")
+        del model9, rtrainer, sb
+        torch.cuda.empty_cache()
+
     # ---- the entry point answers requests: CLI infer + score on a generated corpus
     from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
     from speaker_diarization_tpu_torch.utils.convert import save_flax_npz, tsvad_to_flax
@@ -2143,11 +2345,12 @@ def main() -> int:
 
     # ---- the hermetic TS-VAD recipe on the port (recipes/hermetic_tsvad_full_stack.sh,
     # every stage through the CLI at full width, on a small corpus)
-    recipe_chain()
+    cli_sites = recipe_chain()
 
-    # where each kernel launched, per path driven above (counts of one forward or step)
+    # where each kernel launched, per path driven above (counts of one forward
+    # or step; of a whole run for the CLI verbs of recipe_chain)
     sites = {"tsvad": launches, "tsvad_mamba": mlaunches, "tsvad_mamba_train_step": tlaunches, **eend_launches,
-             **slice_launches}
+             **slice_launches, **cli_sites}
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (

@@ -15,9 +15,12 @@
 #     tsvad_rev  TS-VAD trained with image-source RIR reverberation
 #     eend       EEND on the shared 3-speaker corpus
 #     ecapa      TS-VAD with a scratch-initialised ECAPA-TDNN speech encoder
-#   vbx (clustering) and enhancer_eval (the enhancer) print "not ported"
-#   and are skipped until their ports land (ROADMAP item 3). m2f, fs_eend,
-#   ssnd and ots_vad need only stage 1 (the corpus and the noises).
+#     vbx        PLDA from the encoder's embeddings, spectral init + VBx
+#     enhancer_eval  the flagship TS-VAD on a 2 dB-SNR copy of the test set,
+#                without and with the learned enhancer
+#   m2f, fs_eend, ssnd and ots_vad need only stage 1 (the corpus and the
+#   noises); vbx stages 1-3 (encoder.npz); enhancer_eval stages 1-4 (the
+#   flagship TS-VAD in $WORK/tsvad).
 #
 # Runs on one CUDA GPU through the port's CLI:
 #   WORK=exp/hermetic_tsvad_torch bash recipes/hermetic_leaderboard_torch.sh [families...]
@@ -227,9 +230,75 @@ PYEOF
       --set speech_encoder_type=ecapa --set sample_rate=$rate --set n_mels=80 \
       --set rs_len=4.0
     ;;
-  vbx|enhancer_eval)
-    echo "family $fam: not ported to PyTorch yet, skipped" >&2
-    return 2
+  vbx)
+    # diarizen's default clustering as a baseline row: PLDA from the
+    # self-trained encoder's embeddings over the labeled source utterances,
+    # spectral init + VBx resegmentation
+    $cli estimate-plda --data-dir "$work/src" --out "$work/plda.npz" \
+      --encoder campplus --encoder-ckpt "$work/encoder.npz" --rate $rate \
+      --plda-dim 64
+    $cli cluster --data-dir "$work/test/data" --out "$work/hyp_vbx.rttm" \
+      --method vbx --plda "$work/plda.npz" --sad oracle \
+      --encoder campplus --encoder-ckpt "$work/encoder.npz" --rate $rate \
+      --ref "$work/test/data/rttm" -c 0.25
+    ;;
+  enhancer_eval)
+    # the learned denoiser's effect on DER: corrupt the held-out test
+    # mixtures at low SNR, score the flagship with and without enhancement
+    # at inference
+    WORK="$work" python - <<'PYEOF'
+import os
+import numpy as np
+from speaker_diarization_tpu_torch.data.kaldi_io import KaldiData, save_data_dir
+from speaker_diarization_tpu_torch.data.wav import read_wav, write_wav
+
+work = os.environ.get("WORK", "exp/hermetic_tsvad_torch")
+rate = 8000
+src = KaldiData(os.path.join(work, "test", "data"))
+noise_kd = KaldiData(os.path.join(work, "noise"))
+noises = sorted(noise_kd.wavs)
+outdir = os.path.join(work, "test_noisy")
+os.makedirs(os.path.join(outdir, "wav"), exist_ok=True)
+rng = np.random.default_rng(11)
+wavs = {}
+for i, rec in enumerate(sorted(src.wavs)):
+    a, r = read_wav(src.wavs[rec]) if not src.wavs[rec].endswith("|") else (None, None)
+    assert r == rate
+    n, nr = read_wav(noise_kd.wavs[noises[i % len(noises)]])
+    if n.ndim > 1:
+        n = n[:, 0]
+    reps = len(a) // len(n) + 1
+    n = np.tile(n, reps)[: len(a)]
+    snr = 2.0  # hard condition
+    sp, npow = np.mean(a ** 2) + 1e-12, np.mean(n ** 2) + 1e-12
+    noisy = a + n * np.sqrt(10 ** (-snr / 10) * sp / npow)
+    path = os.path.join(outdir, "wav", rec + ".wav")
+    write_wav(path, noisy.astype(np.float32), rate)
+    wavs[rec] = path
+datadir = os.path.join(outdir, "data")
+save_data_dir(datadir, wavs)
+import shutil
+shutil.copy(os.path.join(work, "test", "data", "rttm"), os.path.join(datadir, "rttm"))
+print("noisy test set:", datadir)
+PYEOF
+    # train and export the enhancer if absent
+    if [ ! -f "$work/enhancer.npz" ]; then
+      $cli train --family enhance --train-dir "$work/src" --noise-dir "$work/noise" \
+        --exp-dir "$work/enh" --resume \
+        --set sample_rate=$rate --set batch_size=16 --set num_steps=1500 \
+        --set optimizer=adam --set schedule=poly --set learning_rate=2e-4 \
+        --set warmup_steps=200 --set bf16=true --set log_every=50 --set valid_every=100000
+      $cli export-enhancer --exp-dir "$work/enh" --out "$work/enhancer.npz"
+    fi
+    $cli infer --family tsvad --data-dir "$work/test_noisy/data" --exp-dir "$work/tsvad" \
+      --emb-store "$work/test/embs.npz" --out "$work/hyp_noisy_plain.rttm" \
+      --threshold-sweep --ref "$work/test_noisy/data/rttm" \
+      --set sample_rate=$rate --set n_mels=80 --set encoder_blocks=12,24,16 --set rs_len=4.0
+    $cli infer --family tsvad --data-dir "$work/test_noisy/data" --exp-dir "$work/tsvad" \
+      --emb-store "$work/test/embs.npz" --out "$work/hyp_noisy_enh.rttm" \
+      --threshold-sweep --ref "$work/test_noisy/data/rttm" \
+      --set sample_rate=$rate --set n_mels=80 --set encoder_blocks=12,24,16 --set rs_len=4.0 \
+      --set enhancer=neural:$work/enhancer.npz --set enhance_prob=1.0
     ;;
   *)
     echo "unknown family: $fam" >&2
@@ -244,8 +313,6 @@ for fam in $families; do
   run_family "$fam" || rc=$?
   if [ $rc -eq 0 ]; then
     echo "=== family $fam DONE ==="
-  elif [ $rc -eq 2 ]; then
-    echo "=== family $fam not ported ==="
   else
     echo "=== family $fam FAILED (continuing) ==="
   fi

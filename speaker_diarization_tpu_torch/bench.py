@@ -57,13 +57,24 @@ widths (d_model 256, 4 encoder and 2 fusion layers, 5 channels; batch 16 ×
 leaderboard's settings (FS-EEND: adam, noam, lr 1.0, warmup 1000; the
 others: adam, poly, lr 2e-4, warmup 400; clip 5).
 
+`--family vad|enhance` measures the ninth slice's models: the neural VAD at
+NeuralVADConfig() (16 kHz, 400/160, 40 mels, causal convs 48/48, LSTM 64;
+fp32, as the vad family trains) at batch 16 × 30 s, the chunks `cluster
+--sad neural` reads (the log-mel through K1′, then 3,000 LSTM steps), and
+the learned enhancer at EnhancerConfig() (n_fft 512, hop 128, 3 convs of 48,
+GRUs of 96 both ways; bf16) at the leaderboard's enhance stage batch, 16 ×
+2 s at 8 kHz (126 frames each way); with `--train`, ms per step at the
+CLI's defaults for vad (adam, noam, lr 1.0, warmup 25000, clip 5) and the
+leaderboard's enhance settings (adam, poly, lr 2e-4, warmup 200, 1,500
+steps, clip 5).
+
 Completion is proven by a data dependency: every forward's probability
 checksum (every step's loss) is chained into one device scalar that is read
 on the host after torch.cuda.synchronize(), so the clock cannot stop before
 every forward or step ran.
 
     python -m speaker_diarization_tpu_torch.bench \\
-        [--family tsvad|tsvad_streaming|eend|eend_eda|spk|sond|tsvad3|eend_vc|ssnd|eend_m2f|fs_eend|ots_vad] \\
+        [--family tsvad|tsvad_streaming|eend|eend_eda|spk|sond|tsvad3|eend_vc|ssnd|eend_m2f|fs_eend|ots_vad|vad|enhance] \\
         [--backend mamba|mamba2] \\
         [--train] [--profile profile.txt]
 
@@ -194,17 +205,19 @@ def eend_recipe_trainer(model, family: str, seed: int = 0):
     return Trainer(model, make_eend_loss() if family == "eend" else make_eda_loss(), tcfg)
 
 
-def profile(step: Callable[[], object], n: int = 3) -> Tuple[str, float]:
-    """Profiler table of `n` calls of `step` (a forward or a train step),
-    sorted by device time, and the device time per call in ms, summed over
-    the CUDA kernels."""
+def profile(step: Callable[[], object], n: int = 3, family: str = "") -> Tuple[str, float]:
+    """Profiler table of `n` calls of `step` (a forward or a train step) of
+    `family`, sorted by device time, and the device time per call in ms,
+    summed over the CUDA kernels. A family in HOST_STEPPED records device
+    events only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     step()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if family in HOST_STEPPED else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with tprofile(activities=acts) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
@@ -265,7 +278,7 @@ def streaming_throughput(model, audios, embss, n_label: int, iters: int = 20, re
 def train_throughput(trainer, batches, iters: int = 5, reps: int = 3) -> Dict[str, float]:
     """Median over `reps` of `iters` pipelined train steps on distinct batches."""
     dt, witness, dts = _pipelined(lambda i: trainer.train_step(batches[i % len(batches)])["loss"],
-                                  batches[0]["audio"].device, iters, reps)
+                                  trainer.device, iters, reps)
     return dict(ms_per_step=1e3 * dt / iters, witness=witness, reps_s=dts)
 
 
@@ -315,13 +328,25 @@ def embed_throughput(encoder, audios, iters: int = 10, reps: int = 3) -> Dict[st
                 reps_s=dts)
 
 
-# the seventh and eighth slices at full width: SOND, TS-VAD3, EEND-VC; SSND,
-# EEND-M2F, FS-EEND, OTS-VAD
-SLICE_FAMILIES = ("sond", "tsvad3", "eend_vc", "ssnd", "eend_m2f", "fs_eend", "ots_vad")
+# the seventh, eighth and ninth slices at full width: SOND, TS-VAD3, EEND-VC;
+# SSND, EEND-M2F, FS-EEND, OTS-VAD; the neural VAD and the learned enhancer
+SLICE_FAMILIES = ("sond", "tsvad3", "eend_vc", "ssnd", "eend_m2f", "fs_eend", "ots_vad", "vad", "enhance")
 SLICE7_BATCH, SLICE7_RATE, ENROLL_S = 16, 16000, 6.0
 VC_BATCH, VC_CHUNK, VC_SPEAKERS = 32, 200, 32  # the leaderboard's eend_vc batch and chunk; a 32-row speaker table
 SLICE8_BATCH, SLICE8_CHUNK = 16, 500  # the leaderboard's m2f and fs_eend batch and chunk (frames)
-EIGHT_KHZ = ("eend_vc", "eend_m2f", "fs_eend")
+EIGHT_KHZ = ("eend_vc", "eend_m2f", "fs_eend", "enhance")
+VAD_BATCH, VAD_S = 16, 30.0  # neural_sad's 30 s chunks, at NeuralVADConfig()'s 16 kHz
+ENH_BATCH, ENH_S = 16, 2.0  # the leaderboard's enhance stage: batch 16 × spk_dur 2 s at 8 kHz
+SLICE_DTYPES = {"vad": "fp32"}  # the dtype each family trains in, where it is not bf16
+# families whose recurrences are stepped from the host: a step holds hundreds
+# of thousands of host events, whose post-processing would outlast many steps,
+# so `profile` records only their device events
+HOST_STEPPED = ("vad", "enhance")
+
+
+def slice_audio(family: str, batch: Dict) -> torch.Tensor:
+    """The batch's input audio (B, N): the enhancer's is its noisy half."""
+    return batch["noisy" if family == "enhance" else "audio"]
 
 
 def slice_model(family: str, device, seed: int = 0, bf16: bool = True, dropout: float = 0.1):
@@ -333,6 +358,14 @@ def slice_model(family: str, device, seed: int = 0, bf16: bool = True, dropout: 
     from .models.tsvad3 import TSVAD3Config, TSVAD3Model
 
     dtype = "bf16" if bf16 else "fp32"
+    if family == "vad":
+        from .models.vad import NeuralVAD
+
+        return NeuralVAD(dtype=dtype, device=device, seed=seed), None
+    if family == "enhance":
+        from .models.enhancer import MaskDenoiser
+
+        return MaskDenoiser(dtype=dtype, device=device, seed=seed), None
     if family == "sond":
         return SONDModel(SONDConfig(dropout=dropout), dtype=dtype, device=device, seed=seed), None
     if family == "tsvad3":
@@ -358,11 +391,45 @@ def make_slice_batches(family: str, model, n_bufs: int, seed: int, device) -> Li
     FS-EEND the EEND chunk batch (500 frames at subsampling 1 and at 10),
     SSND {audio 4 s, labels (B, S, 100), spk_gids (−1 among them), aux_embs
     (the slot queries)}, OTS-VAD {audio 8 s (left and right halves), labels
-    at 25 Hz}."""
+    at 25 Hz}, the VAD {audio 30 s, labels (B, T, 2) at its 100 Hz frame
+    rate, frame_mask}, the enhancer {clean, noisy 2 s at 8 kHz}."""
     from .cli.main import TrainCliConfig, _slots
+    from .ops.features import count_frames
 
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    if family == "vad":
+        c = model.cfg
+        n = int(VAD_S * c.sample_rate)
+        T = count_frames(n, c.frame_shift)
+        out = []
+        for _ in range(n_bufs):
+            # two speakers' on/off runs of 0.2-2 s; the audio a noise floor plus
+            # a tone wherever either speaks, so the labels can be learnt
+            labels = np.zeros((VAD_BATCH, T, 2), np.float32)
+            for row in labels:
+                for spk in range(2):
+                    i = int(rng.integers(0, 100))
+                    while i < T:
+                        on = int(rng.integers(20, 200))
+                        row[i : i + on, spk] = 1.0
+                        i += on + int(rng.integers(20, 200))
+            gate = np.repeat(labels.max(-1), c.frame_shift, axis=1)[:, :n]
+            gate = np.pad(gate, ((0, 0), (0, n - gate.shape[1])))
+            tone = np.sin(2 * np.pi * rng.uniform(100, 300, (VAD_BATCH, 1)) * np.arange(n) / c.sample_rate)
+            audio = 0.01 * rng.standard_normal((VAD_BATCH, n)) + 0.1 * tone * gate
+            mask = np.ones((VAD_BATCH, T), np.float32)
+            mask[-1, T // 2 :] = 0.0  # a padded tail
+            out.append(dict(audio=t(audio.astype(np.float32)), labels=t(labels), frame_mask=t(mask)))
+        return out
+    if family == "enhance":
+        n = int(ENH_S * 8000)
+        out = []
+        for _ in range(n_bufs):
+            clean = 0.1 * np.sin(np.cumsum(rng.uniform(0.02, 0.3, (ENH_BATCH, n)), axis=1))
+            noisy = clean + 0.05 * rng.standard_normal((ENH_BATCH, n))
+            out.append(dict(clean=t(clean.astype(np.float32)), noisy=t(noisy.astype(np.float32))))
+        return out
     if family in EIGHT_KHZ:
         vc = family == "eend_vc"
         front = dict(subsampling=1, context_size=0) if family == "eend_m2f" else {}
@@ -405,6 +472,10 @@ def slice_forward(family: str, model) -> Callable[[Dict], torch.Tensor]:
     embeddings), OTS-VAD's per-speaker probabilities of a 4 s block (its
     frame embeddings, then the backend on the masked means under the labels:
     the embed and score forwards of the online decode)."""
+    if family == "vad":
+        return lambda b: model(b["audio"])
+    if family == "enhance":
+        return lambda b: model(b["noisy"])
     if family == "sond":
         from .infer.chunked import sond_probabilities
 
@@ -437,17 +508,30 @@ def slice_loss(family: str):
         return tasks.make_sond_loss_from_audio(sample_rate=SLICE7_RATE)
     if family == "tsvad3":
         return tasks.make_tsvad3_loss(int(CHUNK_S * 25))
+    if family == "enhance":
+        from .models.enhancer import make_enhance_loss
+
+        return make_enhance_loss()
     return {"eend_vc": tasks.make_eend_vc_loss, "eend_m2f": tasks.make_m2f_loss, "fs_eend": tasks.make_fs_eend_loss,
-            "ots_vad": tasks.make_ots_vad_loss, "ssnd": lambda: tasks.make_ssnd_loss(arcface_weight=0.05)}[family]()
+            "ots_vad": tasks.make_ots_vad_loss, "ssnd": lambda: tasks.make_ssnd_loss(arcface_weight=0.05),
+            "vad": tasks.make_vad_loss}[family]()
 
 
 def slice_recipe_trainer(family: str, model, seed: int = 0):
     """A Trainer with the hermetic leaderboard's settings for the family
-    (EEND-VC and FS-EEND: adam, noam, lr 1.0, warmup 1000; the others: adam,
-    poly, lr 2e-4, warmup 400; clip 5)."""
+    (EEND-VC and FS-EEND: adam, noam, lr 1.0, warmup 1000; the enhancer:
+    adam, poly, lr 2e-4, warmup 200 over 1,500 steps; the others: adam,
+    poly, lr 2e-4, warmup 400; clip 5), and the CLI's defaults for the VAD
+    (adam, noam, lr 1.0, warmup 25000, clip 5)."""
     from .train.trainer import Trainer, TrainerConfig
 
-    if family in ("eend_vc", "fs_eend"):
+    if family == "vad":
+        tcfg = TrainerConfig(optimizer="adam", schedule="noam", learning_rate=1.0, d_model=256, warmup_steps=25000,
+                             grad_clip_norm=5.0, seed=seed)
+    elif family == "enhance":
+        tcfg = TrainerConfig(optimizer="adam", schedule="poly", learning_rate=2e-4, warmup_steps=200,
+                             total_steps=1500, grad_clip_norm=5.0, seed=seed)
+    elif family in ("eend_vc", "fs_eend"):
         tcfg = TrainerConfig(optimizer="adam", schedule="noam", learning_rate=1.0, d_model=256, warmup_steps=1000,
                              grad_clip_norm=5.0, seed=seed)
     else:
@@ -465,10 +549,11 @@ def slice_throughput(family: str, model, batches, iters: int = 10, reps: int = 3
         out = fwd(batches[i % len(batches)])
         return sum(o.float().sum() for o in out) if isinstance(out, tuple) else out.float().sum()
 
-    dt, witness, dts = _pipelined(call, batches[0]["audio"].device, iters, reps)
-    B, N = batches[0]["audio"].shape
+    x = slice_audio(family, batches[0])
+    dt, witness, dts = _pipelined(call, x.device, iters, reps)
+    B, N = x.shape
     N = N // 2 if family == "ots_vad" else N
-    rate = model.frontend.sample_rate if family in EIGHT_KHZ else SLICE7_RATE
+    rate = 8000 if family == "enhance" else model.frontend.sample_rate if family in EIGHT_KHZ else SLICE7_RATE
     return dict(ms_per_forward=1e3 * dt / iters, audio_s_per_s=B * N / rate * iters / dt, witness=witness, reps_s=dts)
 
 
@@ -482,7 +567,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write a profiler table of a few forwards (train steps) to this file")
     args = ap.parse_args(argv)
     meta = dict(device=torch.cuda.get_device_name(0), family=args.family,
-                dtype="fp32" if args.family == "spk" and not args.train else "bf16")
+                dtype="fp32" if args.family == "spk" and not args.train else SLICE_DTYPES.get(args.family, "bf16"))
     per_call = "ms_per_step" if args.train else "ms_per_forward"
     if args.family == "tsvad":
         cfg = TSVADConfig(single_backend_type=args.backend, multi_backend_type=args.backend)
@@ -533,10 +618,10 @@ def main(argv=None) -> int:
             def forward():
                 return fwd(audios[0])
     elif args.family in SLICE_FAMILIES:
-        model, _ = slice_model(args.family, "cuda")
+        model, _ = slice_model(args.family, "cuda", bf16=meta["dtype"] == "bf16")
         batches = make_slice_batches(args.family, model, 4, 0, model.device)
-        meta.update(batch=batches[0]["audio"].shape[0],
-                    chunk_s=batches[0]["audio"].shape[1] / (8000 if args.family in EIGHT_KHZ else SLICE7_RATE))
+        x = slice_audio(args.family, batches[0])
+        meta.update(batch=x.shape[0], chunk_s=x.shape[1] / (8000 if args.family in EIGHT_KHZ else SLICE7_RATE))
         if args.train:
             trainer = slice_recipe_trainer(args.family, model)
             res = train_throughput(trainer, batches)
@@ -566,7 +651,7 @@ def main(argv=None) -> int:
                 return trainer.train_step(batches[0])
         else:
             step = torch.no_grad()(forward)
-        table, device_ms = profile(step)
+        table, device_ms = profile(step, family=args.family)
         with open(args.profile, "w") as f:
             f.write(table)
         # busy share: kernel time per call over the unprofiled wall time per call

@@ -49,6 +49,17 @@
     python -m speaker_diarization_tpu_torch.cli infer --family ssnd|eend_m2f|fs_eend|ots_vad \\
         --data-dir DIR --exp-dir X --out hyp.rttm (ssnd: [--ssnd-rescore] | eend_m2f: \\
         [--class-threshold 0.5] [--m2f-max-concurrent K]) [...as above]
+    python -m speaker_diarization_tpu_torch.cli train --family vad --train-dir D[,D2] [--valid-dir V] \\
+        --exp-dir X [--resume] [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli train --family enhance --train-dir SRC --noise-dir N \\
+        --exp-dir X [--resume] [--set key=value ...] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli export-vad --exp-dir X [--step S] --out vad.npz
+    python -m speaker_diarization_tpu_torch.cli export-enhancer --exp-dir X [--step S] --out enh.npz
+    python -m speaker_diarization_tpu_torch.cli estimate-plda --data-dir D --out plda.npz \\
+        [--encoder campplus|spectrum] [--encoder-ckpt enc.npz] [--rate 16000] [--plda-dim K] [--device cpu]
+    python -m speaker_diarization_tpu_torch.cli cluster --data-dir D --out hyp.rttm \\
+        [--method spectral|umap|vbx [--plda plda.npz]] [--sad energy|oracle|neural [--vad-ckpt vad.npz]] \\
+        [--encoder campplus|spectrum] [--encoder-ckpt enc.npz] [--rate 16000] [--ref ref.rttm] [--device cpu]
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm [--cder]
 
 Ported families: eend, eend_eda (transformer or conformer encoder, `--set
@@ -70,9 +81,15 @@ memory, `--ssnd-rescore` for the two-pass offline rescoring), eend_m2f
 (Mask2Former set prediction, the front-end forced to subsampling 1 and
 context 0; Hungarian matching on the host), fs_eend (frame-streaming EEND
 with a causal attractor decoder), ots_vad (enrollment-free online TS-VAD,
-trained on 2·rs_len chunks, slots named spk1…spkS), and spk (speaker-encoder pretraining, exported by
+trained on 2·rs_len chunks, slots named spk1…spkS), spk (speaker-encoder pretraining, exported by
 `export-encoder` in the JAX package's npz format for `extract-embeddings`
-and `train --family tsvad --encoder-ckpt`). Flag names, `--set` keys and defaults follow the JAX
+and `train --family tsvad --encoder-ckpt`), vad (the neural system SAD,
+trained on EEND chunks at subsampling 1, exported by `export-vad` for
+`cluster --sad neural`) and enhance (the learned denoiser, trained on
+(clean, clean + noise) pairs, exported by `export-enhancer` for `--set
+enhancer=neural:<npz>`, which the TS-VAD datasets apply per chunk).
+`cluster` diarizes by clustering subsegment embeddings (spectral, UMAP +
+HDBSCAN*, or spectral then VBx with an `estimate-plda` PLDA). Flag names, `--set` keys and defaults follow the JAX
 package's CLI (`TrainCliConfig`, cli/main.py:33-110; the family defaults to
 eend in both). `--set remat=true` recomputes activations in the backward
 pass where JAX rematerialises. `train` writes torch checkpoints
@@ -96,8 +113,9 @@ import sys
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
 FAMILIES = ("eend", "eend_eda", "eend_vc", "tsvad", "tsvad_streaming", "tsvad3", "sond", "ssnd", "eend_m2f",
-            "fs_eend", "ots_vad", "spk")  # the ported ones
-INFER_FAMILIES = tuple(f for f in FAMILIES if f != "spk")  # spk exports an encoder instead
+            "fs_eend", "ots_vad", "spk", "vad", "enhance")
+EXPORTED = {"spk": "export-encoder", "vad": "export-vad", "enhance": "export-enhancer"}  # not inferred: exported
+INFER_FAMILIES = tuple(f for f in FAMILIES if f not in EXPORTED)
 TSVAD_FAMILIES = ("tsvad", "tsvad_streaming", "tsvad3", "sond", "ots_vad")  # windows of TS-VAD chunks
 
 _PARAMS_HELP = (
@@ -109,9 +127,8 @@ _PARAMS_HELP = (
 
 @dataclasses.dataclass
 class TrainCliConfig:
-    """The fields of the JAX CLI's TrainCliConfig for the ported families,
-    same names and defaults. The JAX-only fields belong to what is not
-    ported yet (enhance_prob, the enhancer's; n_data, the mesh's)."""
+    """The fields of the JAX CLI's TrainCliConfig, same names, defaults and
+    order, but n_data (the mesh's, not ported)."""
 
     family: str = "eend"  # one of FAMILIES
     # model
@@ -161,7 +178,11 @@ class TrainCliConfig:
     aam_margin: float = 0.2
     aam_scale: float = 32.0
     freeze_encoder: bool = False
-    enhancer: str = ""  # not ported: a non-empty value raises (ROADMAP item 10)
+    # speech-enhancement hook of the TS-VAD datasets (reference
+    # ts_vad_dataset.py:423-492): '' = off, 'spectral_gate' or
+    # 'neural:<npz>'; at train it fires with enhance_prob, at eval always
+    enhancer: str = ""
+    enhance_prob: float = 0.5
     # tsvad3 (enrollment waveforms, egs/alimeeting/ts_vad3)
     ts_len: float = 6.0  # enrollment seconds per speaker
     fuse_fbank_feat: bool = False
@@ -303,6 +324,9 @@ def _cli_config(args, base: TrainCliConfig) -> TrainCliConfig:
         cfg = apply_overrides(cfg, args.set)
     if cfg.family not in FAMILIES:
         raise SystemExit(f"family {cfg.family!r} is not ported yet; ported: {', '.join(FAMILIES)}")
+    if cfg.family == "vad" and cfg.subsampling != 1:  # labels at the frame rate, one per frame_shift hop
+        logging.info("vad family: forcing subsampling=1")
+        cfg = dataclasses.replace(cfg, subsampling=1)
     if cfg.family == "eend_m2f" and (cfg.subsampling != 1 or cfg.context_size != 0):
         # the ×10 lives in the conv backbone and masks are scored at the input
         # frame rate, so the front-end and the dataset run unsubsampled and
@@ -384,6 +408,15 @@ def build_model(cfg: TrainCliConfig, device, bf16: bool = False):
         from ..models.spk_embed import SpeakerClassifier
 
         return SpeakerClassifier(spk_config(cfg, cfg.all_n_speakers), dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "vad":
+        from ..models.vad import NeuralVAD, NeuralVADConfig
+
+        vcfg = NeuralVADConfig(sample_rate=cfg.sample_rate, frame_size=cfg.frame_size, frame_shift=cfg.frame_shift)
+        return NeuralVAD(vcfg, dtype=dtype, device=device, seed=cfg.seed)
+    if cfg.family == "enhance":
+        from ..models.enhancer import EnhancerConfig, MaskDenoiser
+
+        return MaskDenoiser(EnhancerConfig(), dtype=dtype, device=device, seed=cfg.seed)
     if cfg.family == "eend_m2f":
         from ..models.eend_m2f import EENDM2FModel
 
@@ -417,6 +450,16 @@ def _slots(model) -> int:
         if hasattr(c, name):
             return getattr(c, name)
     return getattr(c, "base", c).max_num_speaker
+
+
+def _enhancer_kwargs(cfg: TrainCliConfig, device) -> dict:
+    """The dataset's enhancer hook from `--set enhancer=… enhance_prob=…`; a
+    neural enhancer runs on `device`."""
+    if not cfg.enhancer:
+        return {}
+    from ..data.enhance import get_enhancer
+
+    return dict(enhancer=get_enhancer(cfg.enhancer, device), enhance_prob=cfg.enhance_prob)
 
 
 def _tsvad_data(args, cfg: TrainCliConfig, model):
@@ -463,10 +506,11 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
             _load_encoder(model, args.encoder_ckpt)
         loss_fn = tasks.make_tsvad_loss(T, cfg.freeze_encoder)
     store = EmbeddingStore.load(args.emb_store) if args.emb_store else None  # a comma list merges stores
-    common = dict(rs_len=rs_len, rate=cfg.sample_rate, max_speakers=_slots(model), enhancer=cfg.enhancer or None,
-                  enroll_len_s=cfg.ts_len)
+    common = dict(rs_len=rs_len, rate=cfg.sample_rate, max_speakers=_slots(model), enroll_len_s=cfg.ts_len)
+    # as in the JAX CLI, the enhancer hook is on the training sets, and not on SOND's
+    enh = _enhancer_kwargs(cfg, model.device) if cfg.family != "sond" else {}
     dss = [TSVADChunkDataset(d, store, segment_shift=cfg.segment_shift, is_train=True, seed=cfg.seed,
-                             noise_dir=args.noise_dir, rir_dir=args.rir_dir, target_audio_dir=t, **common)
+                             noise_dir=args.noise_dir, rir_dir=args.rir_dir, target_audio_dir=t, **common, **enh)
            for d, t in zip(train_dirs, tads)]
     train_ds = dss[0] if len(dss) == 1 else ConcatChunkDataset(dss)
     valid_ds = None
@@ -482,7 +526,7 @@ def _tsvad_data(args, cfg: TrainCliConfig, model):
 
 
 def _eend_data(args, cfg: TrainCliConfig):
-    """EEND / EEND-EDA / EEND-VC: (cfg with the batch clamped to the chunks
+    """EEND / EEND-EDA / EEND-VC / EEND-M2F / FS-EEND / VAD: (cfg with the batch clamped to the chunks
     there are and, for EEND-VC, all_n_speakers from the corpus when 0,
     loss_fn, train iterator factory, valid iterator factory, sizes); a comma
     list of --train-dir trains on the corpora jointly."""
@@ -510,7 +554,8 @@ def _eend_data(args, cfg: TrainCliConfig):
             table = {s: i for i, s in enumerate(train_ds.all_speakers)}
             valid_ds.spk_to_gid = {s: table.get(s, -1) for s in valid_ds.all_speakers}
     loss_fn = {"eend": tasks.make_eend_loss, "eend_eda": tasks.make_eda_loss, "eend_vc": tasks.make_eend_vc_loss,
-               "eend_m2f": tasks.make_m2f_loss, "fs_eend": tasks.make_fs_eend_loss}[cfg.family]()
+               "eend_m2f": tasks.make_m2f_loss, "fs_eend": tasks.make_fs_eend_loss,
+               "vad": tasks.make_vad_loss}[cfg.family]()
     # the iterator drops partial batches, so a small dev set gets a smaller batch
     vbs = max(1, min(cfg.batch_size, len(valid_ds.chunks))) if valid_ds else 0
     return (
@@ -542,6 +587,27 @@ def _spk_data(args, cfg: TrainCliConfig):
         (lambda: spk_batch_iterator(valid_ds, min(cfg.batch_size, len(valid_ds)), False)) if valid_ds else None,
         (len(train_ds), len(valid_ds) if valid_ds else 0),
     )
+
+
+def _enhance_data(args, cfg: TrainCliConfig):
+    """The learned denoiser: (cfg, loss_fn, train iterator factory, None,
+    sizes). Batches are endless (clean, clean + noise) pairs: spk_dur-second
+    crops of --train-dir's single-speaker utterances with --noise-dir noise
+    at 0-15 dB SNR (data/enhance.noisy_pair_batches). No validation set, as
+    in JAX."""
+    from ..data.enhance import noisy_pair_batches
+    from ..data.kaldi_io import load_scp
+    from ..models.enhancer import make_enhance_loss
+
+    if not args.noise_dir:
+        raise SystemExit("train --family enhance needs --noise-dir")
+
+    def pairs(ep):
+        return noisy_pair_batches(args.train_dir, args.noise_dir, rate=cfg.sample_rate, dur_s=cfg.spk_dur,
+                                  batch_size=cfg.batch_size, seed=cfg.seed)
+
+    n_clean = len(load_scp(os.path.join(args.train_dir, "wav.scp")))
+    return cfg, make_enhance_loss(), pairs, None, (n_clean, 0)
 
 
 def _ssnd_data(args, cfg: TrainCliConfig):
@@ -594,7 +660,7 @@ def cmd_train(args) -> int:
         model = build_model(cfg, dev)
         loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
     else:  # spk's class count and eend_vc's and ssnd's speaker tables come from the corpus
-        data = {"spk": _spk_data, "ssnd": _ssnd_data}.get(cfg.family, _eend_data)
+        data = {"spk": _spk_data, "ssnd": _ssnd_data, "enhance": _enhance_data}.get(cfg.family, _eend_data)
         cfg, loss_fn, make_train, make_valid, sizes = data(args, cfg)
         model = build_model(cfg, dev)
     tcfg = TrainerConfig(
@@ -634,7 +700,8 @@ def _model_from_exp_dir(args, dev):
     saved = os.path.join(args.exp_dir, TRAIN_CONFIG)
     cfg = _cli_config(args, load_json(TrainCliConfig, saved) if os.path.exists(saved) else TrainCliConfig())
     if cfg.family not in INFER_FAMILIES:
-        raise SystemExit(f"{args.exp_dir} is a {cfg.family} run: export its encoder with export-encoder")
+        raise SystemExit(f"{args.exp_dir} is a {cfg.family} run, which is not inferred: export it with "
+                         f"{EXPORTED[cfg.family]}")
     mgr = CheckpointManager(args.exp_dir)
     step = args.step or mgr.best_step() or mgr.latest_step()
     if step is None:
@@ -675,9 +742,10 @@ def _tsvad_probs(args, model, cfg: TrainCliConfig, rs_len: float):
         store = EmbeddingStore.load(args.emb_store)  # a comma list merges stores
     mc = getattr(model.cfg, "base", model.cfg)  # SONDConfig has no rates: the run's, and 25 Hz labels
     label_rate = getattr(mc, "label_rate", 25)
+    enh = _enhancer_kwargs(cfg, model.device) if cfg.family == "tsvad" else {}  # as the JAX CLI's infer
     ds = TSVADChunkDataset(args.data_dir, store, rs_len=rs_len, segment_shift=args.infer_shift,
                            max_speakers=_slots(model), rate=getattr(mc, "sample_rate", cfg.sample_rate),
-                           label_rate=label_rate, target_audio_dir=tad, enroll_len_s=cfg.ts_len)
+                           label_rate=label_rate, target_audio_dir=tad, enroll_len_s=cfg.ts_len, **enh)
     T = int(rs_len * label_rate)
     if cfg.family == "sond":
         predict = chunked.make_sond_predict(model, cfg.sample_rate)
@@ -1003,6 +1071,197 @@ def cmd_extract_embeddings(args) -> int:
     return 0
 
 
+def _restore_run(args, family: str):
+    """(model on the CPU with a `train --family <family>` run's weights, step):
+    the run's train_config.json, the --step checkpoint, else the latest."""
+    import torch
+
+    from ..train.checkpoints import CheckpointManager
+    from ..utils.config import load_json
+
+    saved = os.path.join(args.exp_dir, TRAIN_CONFIG)
+    cfg = load_json(TrainCliConfig, saved) if os.path.exists(saved) else TrainCliConfig(family=family)
+    if cfg.family != family:
+        raise SystemExit(f"{args.exp_dir} is a {cfg.family} run, not a {family} one")
+    mgr = CheckpointManager(args.exp_dir)
+    step = args.step or mgr.latest_step()
+    if step is None:
+        raise SystemExit(f"no checkpoints in {args.exp_dir}")
+    model = build_model(cfg, torch.device("cpu"))
+    model.load_state_dict(mgr.restore(step)["model"])
+    return model, step
+
+
+def cmd_export_vad(args) -> int:
+    """A vad `train` run's checkpoint → the flax-layout npz `cluster
+    --vad-ckpt` reads (models/vad.save_vad_params)."""
+    from ..models.vad import save_vad_params
+
+    model, step = _restore_run(args, "vad")
+    save_vad_params(args.out, model)
+    logging.info("exported VAD params from step %d", step)
+    print(args.out)
+    return 0
+
+
+def cmd_export_enhancer(args) -> int:
+    """An enhance `train` run's checkpoint → the npz the datasets' enhancer
+    `neural:<path>` reads (models/enhancer.save_enhancer)."""
+    from ..models.enhancer import save_enhancer
+
+    model, step = _restore_run(args, "enhance")
+    save_enhancer(args.out, model)
+    logging.info("exported enhancer from step %d", step)
+    print(args.out)
+    return 0
+
+
+def _make_embed_fn(args, device):
+    """Subsegment embedding fn (B, samples) → (B, D) numpy for cluster and
+    estimate-plda: `campplus` is the `extract-embeddings` encoder (an
+    export-encoder npz, a wespeaker CAM++ state dict, or seeded random
+    weights) after the fbank (K1 on CUDA); `spectrum` is the
+    dependency-free baseline, the L2-normalised magnitude spectrum."""
+    import numpy as np
+
+    if args.encoder == "campplus":
+        import torch
+
+        from ..models.spk_embed import embed_audio
+
+        enc, n_mels = _embedding_encoder(args.encoder_ckpt, device)
+
+        @torch.no_grad()
+        def embed(b: np.ndarray) -> np.ndarray:
+            return embed_audio(enc, torch.from_numpy(b).to(device), args.rate, n_mels).float().cpu().numpy()
+
+        return embed
+    if args.encoder == "spectrum":
+        def embed_fn(b):
+            sp = np.abs(np.fft.rfft(b, axis=-1))[:, :512]
+            return sp / (np.linalg.norm(sp, axis=-1, keepdims=True) + 1e-9)
+
+        return embed_fn
+    raise SystemExit(f"unknown encoder {args.encoder}")
+
+
+def cmd_cluster(args) -> int:
+    """SAD → subsegment embeddings → clustering → RTTM: the reference's
+    spectral/umap clustering recipes as one command
+    (egs/alimeeting/run_spectral_cluster.sh stages 2-8), as the JAX CLI's."""
+    import numpy as np
+
+    from ..data.kaldi_io import KaldiData
+    from ..data.rttm import read_rttm_by_rec, write_rttm
+    from ..infer.clustering import cluster_recording, energy_vad, oracle_sad
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    sad_fn = None
+    ref_by_rec = {}
+    if args.sad == "oracle":
+        ref_by_rec = read_rttm_by_rec(args.oracle_rttm or os.path.join(args.data_dir, "rttm"))
+    elif args.sad == "neural":
+        from ..models.vad import NeuralVAD, NeuralVADConfig, load_vad_params, neural_sad
+
+        if not args.vad_ckpt:
+            raise SystemExit("--sad neural requires --vad-ckpt")
+        vcfg = NeuralVADConfig(sample_rate=args.rate, frame_size=args.rate * 25 // 1000,
+                               frame_shift=args.rate * 10 // 1000)
+        vad = load_vad_params(args.vad_ckpt, NeuralVAD(vcfg, device=dev))
+        sad_fn = lambda audio, rate: neural_sad(  # noqa: E731
+            audio, rate, vad, threshold=args.vad_threshold, min_duration_s=args.min_duration)
+
+    embed_fn = _make_embed_fn(args, dev)
+    plda = None
+    if args.method == "vbx":
+        from ..infer.vbx import load_plda
+
+        if not args.plda:
+            raise SystemExit("--method vbx requires --plda (run estimate-plda first)")
+        plda = load_plda(args.plda)
+
+    kd = KaldiData(args.data_dir)
+    all_turns = []
+    for rec in sorted(kd.wavs):
+        audio, rate = kd.load_wav(rec)
+        if audio.ndim > 1:
+            audio = audio[:, 0]
+        audio = audio.astype(np.float32)
+        if args.sad == "oracle":
+            sad = oracle_sad(ref_by_rec.get(rec, []))
+        elif args.sad == "neural":
+            sad = sad_fn(audio, rate)
+        else:
+            sad = energy_vad(audio, rate)
+        turns = cluster_recording(
+            audio, rate, embed_fn, rec, sad=sad, method=args.method, num_spks=args.num_spks,
+            max_num_spks=args.max_num_spks, window_s=args.window, hop_s=args.hop, plda=plda,
+            vbx_loop_prob=args.vbx_loop_prob, vbx_fa=args.vbx_fa, vbx_fb=args.vbx_fb,
+        )
+        all_turns.extend(turns)
+        logging.info("%s: %d turns, %d speakers", rec, len(turns), len({t.speaker for t in turns}))
+    write_rttm(args.out, all_turns)
+    print(args.out)
+    if args.ref:
+        from ..score import score_der
+
+        print(score_der(args.ref, args.out, collar=args.collar).summary())
+    return 0
+
+
+def cmd_estimate_plda(args) -> int:
+    """Labeled Kaldi dir (utt2spk [+segments]) → two-covariance PLDA npz for
+    `cluster --method vbx`, estimated from the encoder's embeddings of up to
+    --max-windows-per-utt windows an utterance, as the JAX CLI's."""
+    import numpy as np
+
+    from ..data.kaldi_io import KaldiData
+    from ..data.wav import load_wav_maybe_piped
+    from ..infer.vbx import estimate_plda, save_plda
+    from ..utils.device import resolve_device
+
+    embed_fn = _make_embed_fn(args, resolve_device(args.device))
+    kd = KaldiData(args.data_dir)
+    if not kd.utt2spk:
+        raise SystemExit(f"{args.data_dir} has no utt2spk")
+    win = int(args.window * args.rate)
+    hop = int(args.hop * args.rate)
+    wavs, labels = [], []
+    spk_ids = {s: i for i, s in enumerate(sorted(set(kd.utt2spk.values())))}
+    if kd.segments:
+        entries = [(seg["utt"], rec, seg["st"], seg["et"]) for rec, segs in sorted(kd.segments.items())
+                   for seg in segs if seg["utt"] in kd.utt2spk]
+    else:
+        entries = [(u, u, None, None) for u in sorted(kd.utt2spk) if u in kd.wavs]
+    audio_cache = {}
+    for utt, rec, st, et in entries:
+        if rec not in audio_cache:
+            a, r = load_wav_maybe_piped(kd.wavs[rec])
+            if a.ndim > 1:
+                a = a[:, 0]
+            if r != args.rate:
+                raise SystemExit(f"{rec}: {r} Hz audio, --rate is {args.rate}")
+            if len(audio_cache) > 16:
+                audio_cache.clear()
+            audio_cache[rec] = a.astype(np.float32)
+        a = audio_cache[rec]
+        if st is not None:
+            a = a[int(st * args.rate) : int(et * args.rate)]
+        if len(a) < win:
+            a = np.pad(a, (0, win - len(a)), "wrap")
+        for off in range(0, min(len(a) - win, args.max_windows_per_utt * hop - 1) + 1, hop):
+            wavs.append(a[off : off + win])
+            labels.append(spk_ids[kd.utt2spk[utt]])
+    embs = np.concatenate([embed_fn(np.stack(wavs[i : i + 64]).astype(np.float32))
+                           for i in range(0, len(wavs), 64)], axis=0)
+    plda = estimate_plda(embs, np.asarray(labels), dim=args.plda_dim)
+    save_plda(args.out, plda)
+    logging.info("PLDA from %d windows / %d speakers → %s (dim %d)", len(labels), len(spk_ids), args.out, len(plda.psi))
+    print(args.out)
+    return 0
+
+
 def cmd_score(args) -> int:
     from ..score import score_der
     from ..score.cder import score_cder
@@ -1070,7 +1329,8 @@ def build_parser() -> argparse.ArgumentParser:
                                           "wespeaker CAM++ torch state dict (tsvad3: both CAM++)")
     t.add_argument("--real-data-dir", help="ssnd: Kaldi dir of real meetings (with rttm) mixed into each batch "
                                            "at ssnd_real_ratio")
-    t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation")
+    t.add_argument("--noise-dir", help="Kaldi dir of noise wavs for additive-noise augmentation "
+                                       "(enhance: the noise of its training pairs)")
     t.add_argument("--rir-dir", help="Kaldi dir of RIR wavs for reverberation")
     t.add_argument("--max-to-keep", type=int, default=5)
     t.add_argument("--resume", action="store_true", help="resume from the latest checkpoint in --exp-dir")
@@ -1158,6 +1418,56 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--hop", type=float, default=1.0)
     e.add_argument("--device", help="torch device (default: cuda; pass 'cpu' to run on the CPU)")
     e.set_defaults(fn=cmd_extract_embeddings)
+
+    cl = sub.add_parser("cluster", help="SAD → embeddings → clustering → RTTM")
+    cl.add_argument("--data-dir", required=True, help="Kaldi dir with wav.scp")
+    cl.add_argument("--out", required=True, help="output RTTM path")
+    cl.add_argument("--method", choices=["spectral", "umap", "vbx"], default="spectral")
+    cl.add_argument("--plda", help="vbx: PLDA npz from estimate-plda")
+    cl.add_argument("--vbx-loop-prob", type=float, default=0.9)
+    cl.add_argument("--vbx-fa", type=float, default=0.4)
+    cl.add_argument("--vbx-fb", type=float, default=17.0)
+    cl.add_argument("--sad", choices=["energy", "oracle", "neural"], default="energy")
+    cl.add_argument("--oracle-rttm", help="RTTM for oracle SAD (default: <data-dir>/rttm)")
+    cl.add_argument("--vad-ckpt", help="neural VAD params (export-vad npz)")
+    cl.add_argument("--vad-threshold", type=float, default=0.5)
+    cl.add_argument("--min-duration", type=float, default=0.0)
+    cl.add_argument("--encoder", choices=["campplus", "spectrum"], default="campplus")
+    cl.add_argument("--encoder-ckpt", help="export-encoder .npz, or a wespeaker CAM++ torch state dict")
+    cl.add_argument("--num-spks", type=int, help="fix the speaker count (else eigengap)")
+    cl.add_argument("--max-num-spks", type=int, default=20)
+    cl.add_argument("--window", type=float, default=1.5)
+    cl.add_argument("--hop", type=float, default=0.75)
+    cl.add_argument("--rate", type=int, default=16000)
+    cl.add_argument("--ref", help="reference RTTM: score the result")
+    cl.add_argument("-c", "--collar", type=float, default=0.25)
+    cl.add_argument("--device", help="torch device (default: cuda; pass 'cpu' to run on the CPU)")
+    cl.set_defaults(fn=cmd_cluster)
+
+    ep = sub.add_parser("estimate-plda", help="labeled Kaldi dir → PLDA npz for cluster --method vbx")
+    ep.add_argument("--data-dir", required=True, help="Kaldi dir with utt2spk (+segments)")
+    ep.add_argument("--out", required=True, help="output PLDA npz path")
+    ep.add_argument("--encoder", choices=["campplus", "spectrum"], default="campplus")
+    ep.add_argument("--encoder-ckpt", help="export-encoder .npz, or a wespeaker CAM++ torch state dict")
+    ep.add_argument("--rate", type=int, default=16000)
+    ep.add_argument("--window", type=float, default=1.5)
+    ep.add_argument("--hop", type=float, default=0.75)
+    ep.add_argument("--max-windows-per-utt", type=int, default=8)
+    ep.add_argument("--plda-dim", type=int, default=None, help="keep top-K PLDA dims")
+    ep.add_argument("--device", help="torch device (default: cuda; pass 'cpu' to run on the CPU)")
+    ep.set_defaults(fn=cmd_estimate_plda)
+
+    ev = sub.add_parser("export-vad", help="export a trained VAD for `cluster --vad-ckpt`")
+    ev.add_argument("--exp-dir", required=True)
+    ev.add_argument("--step", type=int)
+    ev.add_argument("--out", required=True)
+    ev.set_defaults(fn=cmd_export_vad)
+
+    en = sub.add_parser("export-enhancer", help="export a trained denoiser for the enhancer neural:<path>")
+    en.add_argument("--exp-dir", required=True)
+    en.add_argument("--step", type=int)
+    en.add_argument("--out", required=True)
+    en.set_defaults(fn=cmd_export_enhancer)
     return p
 
 

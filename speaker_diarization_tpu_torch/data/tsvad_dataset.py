@@ -16,12 +16,19 @@ Counterpart of speaker_diarization_tpu/data/tsvad_dataset.py (reference
 - with `target_audio_dir` (prepare-targets' target_audio/<rec>/<spk>.wav
   tree), items also carry `enroll_audio` (S, enroll_len_s·rate): each
   speaker's enrollment waveform for TS-VAD3. `emb_store` may then be None
-  (zero target embeddings).
+  (zero target embeddings);
+- speech enhancement (reference ts_vad_dataset.py:423-492, data/enhance.py):
+  with `enhanced_audio_dir` (a Kaldi dir of pre-enhanced recordings keyed
+  by rec id) a chunk is read from the enhanced copy, always at eval and
+  with probability `enhance_prob` at train; then, after augmentation, the
+  online `enhancer` ('spectral_gate', 'neural:<npz>' or a callable `(audio,
+  rate) -> audio`) is applied, always at eval and with probability
+  `enhance_prob` at train.
 
 Each item's randomness is a `random.Random` seeded from (seed, epoch,
 index), drawn in the JAX package's order, so one seed gives the JAX
 package's items and batches exactly. `is_train` defaults to False here
-(True in the JAX class). The speech-enhancer hooks wait for ROADMAP item 10.
+(True in the JAX class).
 """
 
 from __future__ import annotations
@@ -63,11 +70,11 @@ class TSVADChunkDataset:
         aug_prob: float = 0.5,
         seed: int = 0,
         enhancer=None,
+        enhance_prob: float = 0.0,
+        enhanced_audio_dir: Optional[str] = None,
         target_audio_dir: Optional[str] = None,
         enroll_len_s: float = 3.0,
     ):
-        if enhancer is not None:
-            raise NotImplementedError("the speech-enhancer hooks are not ported yet (ROADMAP item 10)")
         self.kd = kaldi_io.KaldiData(data_dir)
         self.embs = emb_store
         self.rate = rate
@@ -82,6 +89,13 @@ class TSVADChunkDataset:
         self._rirs = kaldi_io.load_scp(os.path.join(rir_dir, "wav.scp")) if rir_dir else None
         self.target_audio_dir = target_audio_dir
         self.enroll_samples = int(enroll_len_s * rate)
+        if enhancer is not None:
+            from .enhance import get_enhancer
+
+            enhancer = get_enhancer(enhancer)
+        self.enhancer = enhancer
+        self.enhance_prob = enhance_prob
+        self._enhanced_wavs = kaldi_io.load_scp(os.path.join(enhanced_audio_dir, "wav.scp")) if enhanced_audio_dir else None
 
         rttm_path = rttm_path or os.path.join(data_dir, "rttm")
         self.turns = read_rttm_by_rec(rttm_path)
@@ -184,7 +198,16 @@ class TSVADChunkDataset:
         lr = self.label_rate
         start_sample = int(ch.start_frame / lr * self.rate)
         want = self.chunk_samples
-        audio, rate = self.kd.load_wav(ch.rec, start_sample, start_sample + want)
+        # offline substitution: always at eval, with enhance_prob at train
+        use_enhanced = (
+            self._enhanced_wavs is not None
+            and ch.rec in self._enhanced_wavs
+            and (not self.is_train or rng.random() < self.enhance_prob)
+        )
+        if use_enhanced:
+            audio, rate = load_wav_maybe_piped(self._enhanced_wavs[ch.rec], start_sample, start_sample + want)
+        else:
+            audio, rate = self.kd.load_wav(ch.rec, start_sample, start_sample + want)
         if rate != self.rate:
             raise ValueError(f"{ch.rec}: sample rate {rate} != dataset rate {self.rate}")
         if audio.ndim > 1:
@@ -192,6 +215,8 @@ class TSVADChunkDataset:
         if len(audio) < want:
             audio = np.pad(audio, (0, want - len(audio)))
         audio = self._augment(rng, audio)
+        if self.enhancer is not None and (not self.is_train or rng.random() < self.enhance_prob):
+            audio = self.enhancer(audio, self.rate)
 
         T = self.chunk_frames
         speakers = list(self.rec_speakers[ch.rec])

@@ -15,8 +15,10 @@ tasks.py:148-238), and EEND-M2F's Hungarian-matched set criterion
 (`make_m2f_loss`, tasks.py:382-397) and FS-EEND's PIT over its silence,
 speaker and pad channels plus the consistency MSE (`make_fs_eend_loss`,
 tasks.py:80-103) and OTS-VAD's BCE on the right half of a chunk after
-self-enrolling on the left (`make_ots_vad_loss`, tasks.py:301-332). The other
-families' losses come with their models.
+self-enrolling on the left (`make_ots_vad_loss`, tasks.py:301-332), and the
+neural VAD's masked BCE on the union of speakers (`make_vad_loss`,
+tasks.py:360-379). The other families' losses come with their models (the
+enhancer's negative SI-SNR: models/enhancer.make_enhance_loss).
 """
 
 from __future__ import annotations
@@ -266,5 +268,25 @@ def make_ots_vad_loss():
         logits, y_right = logits[..., :T], y_right[..., :T]
         stats = M.diarization_error_stats(logits.transpose(1, 2), y_right.transpose(1, 2))
         return L.standard_bce(logits, y_right), {"frame_der": M.der_from_stats(stats)}
+
+    return loss_fn
+
+
+def make_vad_loss():
+    """loss_fn for NeuralVAD (system SAD) over EEND chunk batches at
+    subsampling 1 (one label per frame_shift hop): frame BCE with logits on
+    the union of the speakers' activities, masked by `frame_mask`; aux
+    carries the masked frame accuracy `vad_acc`. The model has no dropout."""
+
+    def loss_fn(model, batch, generator, train):
+        logits = model(batch["audio"])  # (B, T_frames)
+        speech = (batch["labels"].amax(dim=-1) > 0).float()  # (B, T_lab)
+        T = min(logits.shape[1], speech.shape[1])
+        logits, speech = logits[:, :T], speech[:, :T]
+        mask = batch["frame_mask"][:, :T].float()
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        bce = torch.nn.functional.binary_cross_entropy_with_logits(logits, speech, reduction="none")
+        acc = (((logits > 0) == (speech > 0.5)).float() * mask).sum() / denom
+        return (bce * mask).sum() / denom, {"vad_acc": acc.detach()}
 
     return loss_fn

@@ -60,6 +60,14 @@ ConvTransposes `up2`/`up5` flipped), FSEENDModel (the EEND encoder as
 above) and OTSVADModel (its nn.RNN LSTMs' `cell` gates as the EDA's);
 their other modules map by name, attention kernels as DenseGeneral.
 
+`vad_from_flax` / `vad_to_flax` and `enhancer_from_flax` /
+`enhancer_to_flax` map the JAX NeuralVAD (its OptimizedLSTMCell `lstm` as
+the EDA's) and MaskDenoiser (its two flax GRUCells, `GRUCell_0` forward and
+`GRUCell_1` backward, as `gru_fwd`/`gru_bwd`: ir|iz|in kernels (Din, D)
+each and biases → input.weight (3D, Din), input.bias (3D,); hr|hz → hidden
+.weight (2D, D); hn → hidden_n); their convs, LayerNorms and Denses map by
+name.
+
 `conformer`, the ECAPA/ResNet34/SimAM speech encoders, the TS-VAD
 `conformer` and BiLSTM (`lstm_fwd`/`lstm_bwd` for flax's
 OptimizedLSTMCell_0/_1) backends and the upsampling `speech_down` go
@@ -93,11 +101,12 @@ def _flatten(tree: dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[s
             yield prefix + (k,), np.asarray(v)
 
 
-def save_flax_npz(path: str, variables: dict) -> None:
-    """Write flax variables ({'params': ..., 'batch_stats': ...}) as one npz."""
+def save_flax_npz(path: str, variables: dict, **extra: np.ndarray) -> None:
+    """Write flax variables ({'params': ..., 'batch_stats': ...}) as one npz,
+    with `extra` arrays (a config) under their own top-level keys."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     flat = {"/".join(p): np.asarray(v) for p, v in _flatten(variables)}
-    np.savez(path, **flat)
+    np.savez(path, **flat, **extra)
 
 
 def load_flax_npz(path: str) -> dict:
@@ -897,4 +906,63 @@ def ots_vad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict
         parts = name.split(".")
         if parts[0] in _OTS_LSTMS:
             _lstm_to_flax(out["params"], (parts[0], "cell"), parts[1], parts[-1], t.detach().cpu().float().numpy())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# NeuralVAD, MaskDenoiser
+# ---------------------------------------------------------------------------
+
+
+def _named_only_params(state_dict: Dict[str, torch.Tensor]) -> dict:
+    return {"params": named_to_flax(state_dict)["params"]}
+
+
+def vad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX NeuralVAD variables ({'params'}) → NeuralVAD state_dict."""
+    p = variables["params"]
+    sd = named_from_flax({k: v for k, v in p.items() if k != "lstm"}, {})
+    sd.update(_lstm_from_flax(p["lstm"], "lstm"))
+    return sd
+
+
+def vad_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """NeuralVAD state_dict → JAX variables as numpy; the inverse of `vad_from_flax`."""
+    out = _named_only_params({n: t for n, t in state_dict.items() if not n.startswith("lstm.")})
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        if parts[0] == "lstm":
+            _lstm_to_flax(out["params"], ("lstm",), parts[1], parts[2], t.detach().cpu().float().numpy())
+    return out
+
+
+_GRUS = {"gru_fwd": "GRUCell_0", "gru_bwd": "GRUCell_1"}
+_GRU_LINEARS = {"input": ("ir", "iz", "in"), "hidden": ("hr", "hz"), "hidden_n": ("hn",)}
+
+
+def enhancer_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """JAX MaskDenoiser variables ({'params'}) → MaskDenoiser state_dict."""
+    p = variables["params"]
+    sd = named_from_flax({k: v for k, v in p.items() if k not in _GRUS.values()}, {})
+    for mod, cell in _GRUS.items():
+        for linear, gates in _GRU_LINEARS.items():
+            g = [p[cell][x] for x in gates]
+            sd[f"{mod}.{linear}.weight"] = _t(np.concatenate([x["kernel"] for x in g], 1).T)
+            if "bias" in g[0]:
+                sd[f"{mod}.{linear}.bias"] = _t(np.concatenate([x["bias"] for x in g]))
+    return sd
+
+
+def enhancer_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """MaskDenoiser state_dict → JAX variables as numpy; the inverse of `enhancer_from_flax`."""
+    out = _named_only_params({n: t for n, t in state_dict.items() if n.split(".")[0] not in _GRUS})
+    for name, t in state_dict.items():
+        mod, linear, leaf = (name.split(".") + [None, None])[:3]
+        if mod not in _GRUS:
+            continue
+        gates = _GRU_LINEARS[linear]
+        w = t.detach().cpu().float().numpy()
+        for gate, wg in zip(gates, np.split(w, len(gates), axis=0)):
+            _put(out["params"], (_GRUS[mod], gate, "kernel" if leaf == "weight" else "bias"),
+                 wg.T if leaf == "weight" else wg)
     return out

@@ -102,8 +102,11 @@ def test_dataset_eval_items_match(corpus):
                 np.testing.assert_array_equal(x[k], y[k], err_msg=k)
             else:
                 assert x[k] == y[k], k
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # the JAX CLI's comment offers a 'dsp' enhancer that its get_enhancer refuses (ROADMAP §3); the port refuses it too
+    with pytest.raises(ValueError, match="unknown enhancer: 'dsp'"):
         TSVADChunkDataset(corpus["data_dir"], EmbeddingStore.load(corpus["emb_store"]), is_train=True, enhancer="dsp")
+    with pytest.raises(ValueError, match="unknown enhancer: 'dsp'"):
+        JDataset(corpus["data_dir"], JStore.load(corpus["emb_store"]), is_train=True, enhancer="dsp")
 
 
 def _jax_probs(jmodel, v, corpus):

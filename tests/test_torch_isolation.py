@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, no JAX package, no scikit-learn (the GPU
-hosts have none), no silent CPU fallback."""
+"""The port stands alone: no JAX, no JAX package, no scikit-learn, umap,
+hdbscan or msgpack (the GPU hosts have none), no silent CPU fallback."""
 
 import ast
 import os
@@ -18,7 +18,8 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "speaker_diarization_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "speaker_diarization_tpu", "sklearn"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "speaker_diarization_tpu", "sklearn", "umap", "hdbscan",
+             "msgpack"}
 TINY = dict(
     encoder_block_layers=(1, 1), transformer_embed_dim=32, transformer_ffn_embed_dim=64,
     num_attention_head=2, speaker_embed_dim=16, num_transformer_layer=1,
@@ -97,6 +98,16 @@ with torch.no_grad():
                                  sample_rate=8000, encoder_m_channels=4, encoder_blocks=(1, 1, 1, 1)), device="cpu")
     lo = o(a8, a8, torch.ones(2, 4, 13))
     assert lo.shape == (2, 4, 13) and torch.isfinite(lo).all()
+    from speaker_diarization_tpu_torch.infer.clustering import spectral_cluster
+    from speaker_diarization_tpu_torch.models.enhancer import EnhancerConfig, MaskDenoiser
+    from speaker_diarization_tpu_torch.models.vad import NeuralVAD, NeuralVADConfig
+    lo = NeuralVAD(NeuralVADConfig(sample_rate=8000, frame_size=200, frame_shift=80, n_mels=16, conv_channels=(4,),
+                                   lstm_hidden=4), device="cpu")(a8)
+    assert lo.shape == (2, 100) and torch.isfinite(lo).all()
+    y = MaskDenoiser(EnhancerConfig(n_fft=64, hop=16, hidden=4, conv_channels=4, n_convs=1), device="cpu")(a8)
+    assert y.shape == (2, 8000) and torch.isfinite(y).all()
+    lab = spectral_cluster(np.concatenate([rng.standard_normal(8) + 5 * np.eye(8)[i % 2] for i in range(12)]).reshape(12, 8))
+    assert len(set(lab.tolist())) >= 1
 assert not any(k.split(".")[0] in {sorted(FORBIDDEN)!r} and sys.modules[k] is not None for k in sys.modules)
 print("ok")
 """
