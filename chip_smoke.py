@@ -9,8 +9,8 @@ FCM head) against its plain PyTorch twin on the card at the shapes of the
 main paths (K4 also against the cuDNN head it replaces; K2 run twice must
 give the same bits; K2 also at the input widths of shallower encoders, and
 bf16 TS-VAD forwards with them; K1 and K1′ run twice must give the same bits,
-also at 48 kHz (n_fft 2048), and ptxas's registers and spills of each K1
-instance are printed; K3a and K3c run twice must give the same bits, K3a's y
+also at 48 kHz (n_fft 2048) and at ReDimNet's 72 and 60 bins, and ptxas's
+registers and spills of each K1 instance are printed; K3a and K3c run twice must give the same bits, K3a's y
 and K3b's y must be equal bit for bit, no K3a/K3b instance may spill, and
 ptxas's registers and spills of each K3 instance and the SASS instruction mix
 of the forward at d_state 64 are printed). Where build/prev/{cam_block,fcm}.cu
@@ -60,6 +60,16 @@ each with the launch counts set to 0 just before and read just after:
 - speaker-encoder pretraining with ECAPA (512 channels) and ResNet34 at
   stage 2's settings: fbank 1 a step, five steps on one batch must lower
   the loss;
+- [zoo] TS-VAD with every other speech encoder of TSVADConfig at full
+  width (bf16, batch 32 × 4 s at 16 kHz): wavlm, wavlm_weight_sum, hubert,
+  wav2vec2, mms (12 × 768 on the waveform) and whisper (large-v2, 1280 ×
+  32, blocks 16-23): no kernel; w2vbert (6 × 1024), eres2netv2 and
+  redimnet_b0-b6 (K1 at 80, 60 and 72 bins): fbank 1; each held to the
+  plain twins and timed with the profiler's busy share; five adam steps on
+  one batch must lower the loss for wavlm, w2vbert, whisper, eres2netv2 and
+  redimnet_b2, whose recipe step is timed; then, in this process, `train
+  --family tsvad --set speech_encoder_type=wavlm` (4 steps) → `infer
+  --threshold-sweep` → `score`;
 - a TS-VAD train step with remat on and off (CAM++'s dense layers
   recomputed in the backward pass): the same loss, and the peak memory
   (`torch.cuda.max_memory_allocated`) of each;
@@ -1096,6 +1106,125 @@ def recipe_chain():
         return cli_sites
 
 
+def zoo_phase(dev, smi, plain_forward, want, reset_counts, fixed_batch_steps):
+    """[zoo]: TS-VAD with every other speech encoder of TSVADConfig at its
+    full width (bf16, batch 32 x 4 s at 16 kHz, seeded weights): the WavLM
+    trunk (wavlm, its layer-weighted sum, hubert, wav2vec2, mms: 12 x 768 on
+    raw waveforms) and Whisper (the large-v2 trunk, 1280 x 32, blocks 16-23
+    concatenated, its own plain log-mel) launch no kernel; w2v-BERT (6 x
+    1024), ERes2NetV2 (stage 3 of 3/4/6/3, m 64) and ReDimNet b0-b6 read K1's
+    fbank (80 bins; 60 for b0, 72 for b1-b6): fbank 1 a forward and a step.
+    Each forward held to the plain twins (`plain_forward`), timed, with the
+    profiler's busy share; for one type of each trunk five adam steps at
+    1e-4 on one batch must lower the loss, and the recipe's step is timed.
+    → the launches of each forward and step."""
+    import torch
+
+    from speaker_diarization_tpu_torch.bench import (ZOO_BATCH, make_inputs, make_train_batches, profile,
+                                                     recipe_trainer, throughput, train_throughput, zoo_config)
+    from speaker_diarization_tpu_torch.models.tsvad import SSL_TYPES, TSVADModel
+    from speaker_diarization_tpu_torch.train.tasks import make_tsvad_loss
+    from speaker_diarization_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    n_label = 100
+    zoo_types = (*SSL_TYPES, "w2vbert", "whisper", "eres2netv2", *(f"redimnet_b{i}" for i in range(7)))
+    zoo_train = ("wavlm", "w2vbert", "whisper", "eres2netv2", "redimnet_b2")
+    zoo_launches, t_zoo = {}, time.perf_counter()
+    for zi, zt in enumerate(zoo_types):
+        zcfg = zoo_config(zt)
+        fbank_enc = not (zt in SSL_TYPES or zt == "whisper")
+        zmodel = TSVADModel(zcfg, dtype="bf16", device=dev, seed=0)
+        za, ze = make_inputs(zcfg, ZOO_BATCH, 4.0, 3, seed=40 + zi, device=dev)
+        with torch.no_grad():
+            zmodel(za[0], ze[0], n_label)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            zlogits = zmodel(za[1], ze[1], n_label)
+            torch.cuda.synchronize()
+            zl = launch_counts()
+            ref = plain_forward(zmodel, za[1], ze[1], n_label)
+        mean_err, scale = (zlogits - ref).abs().mean().item(), max(1.0, ref.abs().mean().item())
+        n_params = sum(p.numel() for p in zmodel.speech_encoder.parameters())
+        phase("zoo", f"TS-VAD {zt} ({zcfg.feat_dim if fbank_enc else 'raw'} in, encoder {n_params / 1e6:.1f} M "
+              f"params) bf16 ({ZOO_BATCH}, 64000) -> {tuple(zlogits.shape)}; launches {zl}; vs plain twins "
+              f"mean-abs {mean_err:.3e} (bar 5e-2 x {scale:.3f})")
+        if zl != want(fbank=1 if fbank_enc else 0) or tuple(zlogits.shape) != (ZOO_BATCH, 100, 4) \
+                or not torch.isfinite(zlogits).all() or not mean_err <= 5e-2 * scale:
+            raise AssertionError(f"TS-VAD {zt}: launches {zl}, mean-abs {mean_err} against the twins")
+        zoo_launches[f"tsvad_{zt}"] = zl
+        tpz = throughput(zmodel, za, ze, n_label, iters=5, reps=2)
+        dev_ms = profile(torch.no_grad()(lambda: zmodel(za[0], ze[0], n_label)), n=2)[1]
+        phase("throughput", f"TS-VAD {zt} bf16 batch {ZOO_BATCH} x 4 s: {tpz['ms_per_forward']:.3f} ms/forward, "
+              f"{tpz['audio_s_per_s']:.1f} audio-s/s (checksum {tpz['witness']:.6e}, reps "
+              f"{[round(r, 4) for r in tpz['reps_s']]}), device {dev_ms:.3f} ms/forward, busy "
+              f"{dev_ms / tpz['ms_per_forward']:.3f} | {smi}")
+        if zt in zoo_train:
+            zb = make_train_batches(zcfg, ZOO_BATCH, 4.0, 2, seed=60 + zi, device=dev)
+            fixed = Trainer(zmodel, make_tsvad_loss(n_label),
+                            TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
+            zlosses, zlt = fixed_batch_steps(fixed, zb[0], want(fbank=1 if fbank_enc else 0), f"TS-VAD {zt}")
+            zoo_launches[f"tsvad_{zt}_train_step"] = zlt
+            del fixed
+            ztrainer = recipe_trainer(zmodel, n_label)
+            ztt = train_throughput(ztrainer, zb, iters=3, reps=2)
+            _, zstep_ms = profile(lambda: ztrainer.train_step(zb[0]), n=1)
+            phase("train", f"TS-VAD {zt}: 5 adam steps at 1e-4 on one batch (bf16, {ZOO_BATCH} x 4 s): losses "
+                  f"{[round(v, 5) for v in zlosses]}; launches per step {zlt}; recipe step "
+                  f"{ztt['ms_per_step']:.3f} ms, profiler device time {zstep_ms:.3f} ms/step, busy share "
+                  f"{zstep_ms / ztt['ms_per_step']:.3f} | {smi}")
+            del ztrainer, zb
+        del zmodel, za, ze
+        torch.cuda.empty_cache()
+    phase("zoo", f"{len(zoo_types)} speech encoders in {time.perf_counter() - t_zoo:.1f} s")
+    return zoo_launches
+
+
+def zoo_cli_chain():
+    """The zoo through the CLI, in this process: `train --family tsvad --set
+    speech_encoder_type=wavlm` (4 steps, bf16, batch 32 x 4 s, with
+    validation, checkpoints and the flax npz) → `infer --threshold-sweep` →
+    `score` on a generated 16 kHz corpus. → its kernel launches."""
+    from speaker_diarization_tpu_torch.data.synth import write_synthetic_corpus
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        tr = write_synthetic_corpus(os.path.join(tmp, "train"), n_recs=2, seconds=70.0, rate=16000, n_speakers=3,
+                                    seed=70, prefix="tr")
+        va = write_synthetic_corpus(os.path.join(tmp, "valid"), n_recs=2, seconds=70.0, rate=16000, n_speakers=3,
+                                    seed=71, prefix="va")  # 34 windows: one whole validation batch
+        exp = os.path.join(tmp, "exp")
+        sets = ["speech_encoder_type=wavlm", "sample_rate=16000", "rs_len=4.0", "segment_shift=2.0", "batch_size=32",
+                "num_steps=4", "optimizer=adam", "schedule=poly", "learning_rate=2e-4", "warmup_steps=400",
+                "bf16=true", "log_every=2", "valid_every=2", "n_layers=2"]
+        t0 = time.perf_counter()
+        before = launch_counts()
+        cli("train", "--family", "tsvad", "--train-dir", tr["data_dir"], "--valid-dir", va["data_dir"],
+            "--emb-store", f"{tr['emb_store']},{va['emb_store']}", "--exp-dir", exp,
+            *[a for kv in sets for a in ("--set", kv)])
+        trains, valids, ckpts = read_metrics(exp)
+        t_train = time.perf_counter() - t0
+        if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in trains + valids) \
+                or not ckpts or not os.path.exists(os.path.join(exp, "flax_params.npz")):
+            raise AssertionError(f"zoo CLI train (wavlm) did not log, validate, checkpoint and export: {trains}, "
+                                 f"{valids}, {ckpts}")
+        t0 = time.perf_counter()
+        out = cli("infer", "--family", "tsvad", "--data-dir", va["data_dir"], "--emb-store", va["emb_store"],
+                  "--exp-dir", exp, "--out", os.path.join(tmp, "hyp"), "--threshold-sweep", "--ref", va["rttm"])
+        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", out)
+        n_rttm = sum(fn.startswith("hyp_") for fn in os.listdir(tmp))
+        if not best or n_rttm != 18:
+            raise AssertionError(f"zoo CLI infer (wavlm) wrote {n_rttm} RTTMs:\n{out[-2000:]}")
+        line = cli("score", "--ref", va["rttm"], "--sys", os.path.join(tmp, f"hyp_{float(best.group(1)):.2f}"))
+        line = line.strip().splitlines()[-1]
+        if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
+            raise AssertionError(f"zoo CLI score (wavlm) printed {line!r}")
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        phase("cli", f"zoo chain: train --family tsvad --set speech_encoder_type=wavlm (bf16, batch 32 x 4 s, 4 "
+              f"steps): {t_train:.1f} s, last log {trains[-1]}, valid losses {[round(r['loss'], 5) for r in valids]}; "
+              f"infer --threshold-sweep: best threshold {best.group(1)} DER {best.group(2)}% "
+              f"({time.perf_counter() - t0:.1f} s); score DER/MS/FA/SC {line}; launches {launches}")
+    return {"cli_zoo_wavlm": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1153,8 +1282,10 @@ def main() -> int:
     for inst, lines in ptxas_props(_build.build_log("fbank"), "fbank_kernel").items():
         phase("K1", f"fbank_kernel<{inst}> (n_fft {2 * int(inst.split(',')[0])}): {' | '.join(lines)}")
     k1lib = K1._lib()
+    # (ReDimNet's fbank widths: 72 bins for b1-b6, 60 for b0, at the [zoo] batch)
     for sr, n_mels, shape in ((16000, 80, (64, 64000)), (8000, 80, (64, 32000)), (48000, 80, (8, 96000)),
-                              (8000, 80, (64, 12000)), (8000, 80, (20, 12000))):
+                              (8000, 80, (64, 12000)), (8000, 80, (20, 12000)), (16000, 72, (32, 64000)),
+                              (16000, 60, (32, 64000))):
         x = (0.1 * torch.randn(shape, generator=gen)).to(dev)
         win, shift, n_fft = FE.frame_params(sr)
         T = 1 + (shape[1] - win) // shift
@@ -1186,7 +1317,7 @@ def main() -> int:
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
         if not (err <= 5e-3 and same and torch.isfinite(got).all()):
             raise AssertionError(f"K1 disagrees with its twin at {sr} Hz: max-abs {err}, bitwise equal runs {same}")
-        if sr == 16000:
+        if sr == 16000 and n_mels == 80:
             records["fbank"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, err=err)
 
     # ---- K1′: the EEND log-mel entry vs its plain twin (fp32, log10 units;
@@ -2001,6 +2132,9 @@ def main() -> int:
             del fixed, cb
         del cmodel
 
+    zoo_launches = zoo_phase(dev, smi, plain_forward, want, reset_counts, fixed_batch_steps)
+    zoo_launches.update(zoo_cli_chain())
+
     # ---- speaker-encoder pretraining with ECAPA (512 channels) and ResNet34
     # at stage 2's settings (AAM over 32 speakers, margin 0.3, bf16, batch 64
     # x 2 s at 8 kHz): fbank 1 a step; five adam steps on one batch must lower
@@ -2350,7 +2484,7 @@ def main() -> int:
     # where each kernel launched, per path driven above (counts of one forward
     # or step; of a whole run for the CLI verbs of recipe_chain)
     sites = {"tsvad": launches, "tsvad_mamba": mlaunches, "tsvad_mamba_train_step": tlaunches, **eend_launches,
-             **slice_launches, **cli_sites}
+             **slice_launches, **zoo_launches, **cli_sites}
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (

@@ -5,9 +5,13 @@ measures, on the card: audio seconds per second of the full-size TS-VAD
 forward (TSVADConfig(), CAM++ 12/24/16, bf16) at batch 64 × 4 s chunks, with
 seeded random weights; `--backend mamba` swaps both backends for BiMamba
 (S6, d_state 64), `--backend mamba2` for BiMamba-2 (SSD: d_state 64,
-expand 2, 12 heads of 64). `--train` instead times train steps at the
-hermetic recipe's settings (batch 64 × 4 s, bf16, adam, poly schedule, lr
-2e-4, warmup 400, clip 5) on seeded random batches.
+expand 2, 12 heads of 64). `--speech-encoder` swaps CAM++ for another
+speech encoder of TSVADConfig (wavlm, wavlm_weight_sum, hubert, wav2vec2,
+mms, w2vbert, whisper, eres2netv2, redimnet_b0…b6, at their fbank widths:
+60 bins for b0, 72 for b1-b6) at batch 32 × 4 s (`zoo_config`).
+`--train` instead times train steps at the hermetic recipe's settings
+(batch 64 × 4 s, bf16, adam, poly schedule, lr 2e-4, warmup 400, clip 5) on
+seeded random batches.
 
 `--family tsvad_streaming` measures streaming TS-VAD at the second hermetic
 recipe's stream_cfg (recipes/hermetic_streaming_and_eda.sh: 8 kHz, 80 bins,
@@ -75,7 +79,7 @@ every forward or step ran.
 
     python -m speaker_diarization_tpu_torch.bench \\
         [--family tsvad|tsvad_streaming|eend|eend_eda|spk|sond|tsvad3|eend_vc|ssnd|eend_m2f|fs_eend|ots_vad|vad|enhance] \\
-        [--backend mamba|mamba2] \\
+        [--backend mamba|mamba2] [--speech-encoder wavlm|whisper|w2vbert|eres2netv2|redimnet_b2|...] \\
         [--train] [--profile profile.txt]
 
 `--profile` also records a torch.profiler window of a few forwards (train
@@ -95,9 +99,10 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from .models.tsvad import TSVADConfig, TSVADModel
+from .models.tsvad import SPEECH_ENCODERS, TSVADConfig, TSVADModel
 
 BATCH, CHUNK_S = 64, 4.0  # the JAX bench's shape (reference run_ts_vad2.sh:198)
+ZOO_BATCH = 32  # the speech-encoder zoo's batch of 4 s chunks at 16 kHz (chip_smoke.py's [zoo] phase)
 EEND_BATCH = 32  # recipes/mini_librispeech_eend.sh:31
 # recipes/hermetic_tsvad_full_stack.sh: stage 2 (32 simulated speakers, 2 s
 # crops, batch 64 at 8 kHz) and stage 3 (6 s windows, in batches of 32)
@@ -123,6 +128,14 @@ def _pipelined(call: Callable[[int], torch.Tensor], device, iters: int, reps: in
         if not np.isfinite(witness):
             raise RuntimeError(f"non-finite checksum {witness}")
     return statistics.median(dts), witness, dts
+
+
+def zoo_config(speech_encoder: str = "campplus", backend: str = "transformer") -> TSVADConfig:
+    """TSVADConfig() with `speech_encoder` at its fbank width (60 bins for
+    redimnet_b0, 72 for b1-b6, else 80) and `backend` for both backends."""
+    feat = 60 if speech_encoder == "redimnet_b0" else 72 if speech_encoder.startswith("redimnet") else 80
+    return TSVADConfig(speech_encoder_type=speech_encoder, feat_dim=feat, single_backend_type=backend,
+                       multi_backend_type=backend)
 
 
 def make_inputs(cfg: TSVADConfig, batch: int, chunk_s: float, n_bufs: int, seed: int, device) -> Tuple[List, List]:
@@ -563,6 +576,8 @@ def main(argv=None) -> int:
                     default="tsvad")
     ap.add_argument("--backend", choices=["transformer", "mamba", "mamba_add", "mamba2", "mamba2_add"],
                     default="transformer", help="tsvad: both backends")
+    ap.add_argument("--speech-encoder", choices=SPEECH_ENCODERS, default="campplus",
+                    help="tsvad: the speech encoder (a type other than campplus runs at batch 32)")
     ap.add_argument("--train", action="store_true", help="time train steps instead of forwards")
     ap.add_argument("--profile", help="write a profiler table of a few forwards (train steps) to this file")
     args = ap.parse_args(argv)
@@ -570,16 +585,17 @@ def main(argv=None) -> int:
                 dtype="fp32" if args.family == "spk" and not args.train else SLICE_DTYPES.get(args.family, "bf16"))
     per_call = "ms_per_step" if args.train else "ms_per_forward"
     if args.family == "tsvad":
-        cfg = TSVADConfig(single_backend_type=args.backend, multi_backend_type=args.backend)
+        cfg = zoo_config(args.speech_encoder, args.backend)
+        batch = BATCH if args.speech_encoder == "campplus" else ZOO_BATCH
         model = TSVADModel(cfg, dtype="bf16", device="cuda", seed=0)
         T = int(CHUNK_S * cfg.label_rate)
-        meta.update(backend=args.backend, batch=BATCH, chunk_s=CHUNK_S)
+        meta.update(backend=args.backend, speech_encoder=args.speech_encoder, batch=batch, chunk_s=CHUNK_S)
         if args.train:
             trainer = recipe_trainer(model, T)
-            batches = make_train_batches(cfg, BATCH, CHUNK_S, 4, 0, model.device)
+            batches = make_train_batches(cfg, batch, CHUNK_S, 4, 0, model.device)
             res = train_throughput(trainer, batches)
         else:
-            audios, embss = make_inputs(cfg, BATCH, CHUNK_S, 8, seed=0, device=model.device)
+            audios, embss = make_inputs(cfg, batch, CHUNK_S, 8, seed=0, device=model.device)
             res = throughput(model, audios, embss, T)
 
             def forward():

@@ -63,8 +63,11 @@
     python -m speaker_diarization_tpu_torch.cli score --ref ref.rttm --sys hyp.rttm [--cder]
 
 Ported families: eend, eend_eda (transformer or conformer encoder, `--set
-encoder_type=…`), tsvad (CAM++, ECAPA, ResNet34 or SimAM-ResNet34 speech
-encoder through `--set speech_encoder_type=…`; transformer, conformer,
+encoder_type=…`), tsvad (every speech encoder of the JAX TSVADConfig
+through `--set speech_encoder_type=…`: campplus, ecapa, resnet34,
+simam_resnet34, wavlm, wavlm_weight_sum, hubert, wav2vec2, mms, w2vbert,
+whisper, eres2netv2 and redimnet_b0…b6, the last with `--set n_mels=60`
+for b0 and 72 for b1-b6; transformer, conformer,
 mamba, mamba_add, mamba2 and mamba2_add backends, and lstm for the multi
 backend, through `--set single_backend_type=… --set
 multi_backend_type=…`), tsvad_streaming
@@ -93,7 +96,9 @@ HDBSCAN*, or spectral then VBx with an `estimate-plda` PLDA). Flag names, `--set
 package's CLI (`TrainCliConfig`, cli/main.py:33-110; the family defaults to
 eend in both). `--set remat=true` recomputes activations in the backward
 pass where JAX rematerialises. `train` writes torch checkpoints
-and its config (train_config.json) into --exp-dir; `infer --exp-dir`
+and its config (train_config.json) into --exp-dir, and for tsvad the last
+weights as one flax-layout npz (flax_params.npz) beside the TSVADConfig
+they fit (tsvad_config.json); `infer --exp-dir`
 rebuilds the model from that config (its family unless --family is given,
 then --set) and restores the best checkpoint by validation loss, else the
 latest. `--params` takes the JAX TSVADModel variables as one flax-layout
@@ -112,6 +117,8 @@ import sys
 
 BATCH_SIZE = 16  # windows per forward (tsvad_infer_dataset's default)
 TRAIN_CONFIG = "train_config.json"  # written by `train` into --exp-dir
+# and, for tsvad, the last weights as flax-layout variables and the TSVADConfig they fit
+FLAX_PARAMS, FLAX_CONFIG = "flax_params.npz", "tsvad_config.json"
 FAMILIES = ("eend", "eend_eda", "eend_vc", "tsvad", "tsvad_streaming", "tsvad3", "sond", "ssnd", "eend_m2f",
             "fs_eend", "ots_vad", "spk", "vad", "enhance")
 EXPORTED = {"spk": "export-encoder", "vad": "export-vad", "enhance": "export-enhancer"}  # not inferred: exported
@@ -687,6 +694,12 @@ def cmd_train(args) -> int:
         metrics_path=os.path.join(args.exp_dir, "metrics.jsonl"),
         profile_dir=args.profile_dir,
     )
+    if cfg.family == "tsvad":  # for `infer --params`, and the JAX package's TSVADModel
+        from ..utils.convert import save_flax_npz, tsvad_to_flax
+
+        save_flax_npz(os.path.join(args.exp_dir, FLAX_PARAMS), tsvad_to_flax(model.state_dict(), cfg.n_heads))
+        with open(os.path.join(args.exp_dir, FLAX_CONFIG), "w") as f:
+            json.dump(dataclasses.asdict(model.cfg), f, indent=1)
     logging.info("training done at step %d; checkpoints in %s", trainer.step, args.exp_dir)
     return 0
 
@@ -1429,7 +1442,7 @@ def build_parser() -> argparse.ArgumentParser:
     cl.add_argument("--vbx-fb", type=float, default=17.0)
     cl.add_argument("--sad", choices=["energy", "oracle", "neural"], default="energy")
     cl.add_argument("--oracle-rttm", help="RTTM for oracle SAD (default: <data-dir>/rttm)")
-    cl.add_argument("--vad-ckpt", help="neural VAD params (export-vad npz)")
+    cl.add_argument("--vad-ckpt", help="neural VAD params: an export-vad npz, or the JAX package's flax msgpack")
     cl.add_argument("--vad-threshold", type=float, default=0.5)
     cl.add_argument("--min-duration", type=float, default=0.0)
     cl.add_argument("--encoder", choices=["campplus", "spectrum"], default="campplus")

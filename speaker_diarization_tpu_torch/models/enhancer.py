@@ -21,9 +21,9 @@ promoted where they meet the carry, as JAX promotes them. Submodules carry
 the flax names (`conv_i`, `ln_i`, `mask_head`; the GRUs, flax's
 `GRUCell_0` and `GRUCell_1`, are `gru_fwd` and `gru_bwd`), so
 utils/convert.enhancer_from_flax maps the JAX variables. `save_enhancer`
-writes the config keys of the JAX npz beside flax-layout weights; a
-JAX-written npz (flax msgpack bytes under `params`) is refused with the way
-to convert it.
+writes the config keys of the JAX npz beside flax-layout weights;
+`load_enhancer` reads that npz and the JAX-written one (flax msgpack bytes
+under `params`, decoded by utils/msgpack.py).
 """
 
 from __future__ import annotations
@@ -197,19 +197,20 @@ def save_enhancer(path: str, model: MaskDenoiser) -> None:
 
 
 def load_enhancer(path: str, device: Optional[Union[str, torch.device]] = None) -> MaskDenoiser:
-    """A MaskDenoiser (fp32, eval mode) on `device` from `save_enhancer`'s npz."""
+    """A MaskDenoiser (fp32, eval mode) on `device` from `save_enhancer`'s
+    npz, or from the JAX package's (its config keys beside the flax msgpack
+    bytes of the params under `params`)."""
     from ..utils.convert import enhancer_from_flax, load_flax_npz
+    from ..utils.msgpack import flax_variables
 
     with np.load(path, allow_pickle=False) as z:
-        if "params" in z.files:
-            raise ValueError(
-                f"{path} was written by the JAX package (flax msgpack bytes under 'params'), which is not read "
-                "here; decode it with flax.serialization in the JAX package, convert the params with "
-                "utils/convert.enhancer_from_flax, or export a port-trained enhancer with `export-enhancer`"
-            )
         cfg = EnhancerConfig(**{k: int(z[k]) for k in CONFIG_KEYS})
+        packed = z["params"].tobytes() if "params" in z.files else None
+    if packed is not None:
+        variables = flax_variables(packed, path)
+    else:
+        variables = {k: v for k, v in load_flax_npz(path).items() if k not in CONFIG_KEYS}
     model = MaskDenoiser(cfg, device=device)
-    variables = {k: v for k, v in load_flax_npz(path).items() if k not in CONFIG_KEYS}
     model.load_state_dict(enhancer_from_flax(variables))
     return model
 

@@ -16,6 +16,9 @@ F/8·C, frequency-major: the torch trunk permutes to (B, T/8, F/8, C)
 before flattening. BatchNorm is flax's (models/layers.BatchNorm).
 `with_head=False` builds the frames-only trunk, as the JAX TS-VAD model's
 variables hold it (its pooling and embedding layers are never created).
+`build_speaker_encoder` also builds the zoo's ERes2Net, ReDimNet, WavLM and
+Whisper from their own modules (models/eres2net.py, redimnet.py, wavlm.py,
+whisper_encoder.py).
 """
 
 from __future__ import annotations
@@ -304,13 +307,15 @@ SPEAKER_ENCODERS = {
     "ecapa_tdnn": "speaker_diarization_tpu_torch.models.speaker_encoders:ECAPA_TDNN",
     "resnet34": "speaker_diarization_tpu_torch.models.speaker_encoders:ResNet34",
     "simam_resnet34": "speaker_diarization_tpu_torch.models.speaker_encoders:SimAMResNet34",
+    "eres2net": "speaker_diarization_tpu_torch.models.eres2net:ERes2Net",
+    "redimnet": "speaker_diarization_tpu_torch.models.redimnet:ReDimNet",
+    "wavlm": "speaker_diarization_tpu_torch.models.wavlm:WavLMModel",
+    "whisper": "speaker_diarization_tpu_torch.models.whisper_encoder:WhisperEncoder",
 }
-NOT_PORTED = ("eres2net", "redimnet", "wavlm", "whisper")  # ROADMAP item 5, [12]
 
 
 def build_speaker_encoder(name: str, **kwargs) -> nn.Module:
-    """Zoo factory (reference create_speech_encoder, ts_vad2/model.py:369)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"speaker encoder {name!r} is not ported to PyTorch yet (ROADMAP item 5, [12])")
+    """Zoo factory (reference create_speech_encoder, ts_vad2/model.py:369);
+    an unknown name raises KeyError, as in JAX."""
     mod, cls = SPEAKER_ENCODERS[name].split(":")
     return getattr(importlib.import_module(mod), cls)(**kwargs)

@@ -44,8 +44,8 @@ def sinusoidal_position_encoding(max_len: int, d_model: int) -> np.ndarray:
 
 
 class LayerNorm(nn.LayerNorm):
-    def __init__(self, d_model: int):
-        super().__init__(d_model, eps=LN_EPS)
+    def __init__(self, d_model: int, eps: float = LN_EPS):
+        super().__init__(d_model, eps=eps)
 
     def forward(self, x):
         return Fn.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)

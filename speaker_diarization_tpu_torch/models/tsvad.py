@@ -1,10 +1,9 @@
 """TS-VAD: target-speaker voice activity detection — the DER flagship.
 
 Counterpart of speaker_diarization_tpu/models/tsvad.py (reference
-ts_vad2/model.py:179-970), with the CAM++, ECAPA-TDNN (1024 channels),
-ResNet34 and SimAM-ResNet34 speech encoders and transformer, conformer,
-BiMamba (S6), BiMamba-2 (SSD) or (multi backend) BiLSTM backends. The
-CAM++ flagship:
+ts_vad2/model.py:179-970), with every speech encoder of the JAX model
+(SPEECH_ENCODERS) and transformer, conformer, BiMamba (S6), BiMamba-2 (SSD)
+or (multi backend) BiLSTM backends. The CAM++ flagship:
 
   audio (B, N) → kaldi fbank 80d @100 Hz (mean-norm; K1 kernel on CUDA)
   → CAM++ frame encoder (512d @50 Hz; fused path, K2 kernel per block)
@@ -24,11 +23,19 @@ eval mode only, as in JAX). ECAPA frames come at 100 Hz and a stride-4
 conv takes them to 25 Hz; ResNet frames come at 12.5 Hz and a ×2
 transposed conv (flax's "SAME" padding, `ConvTransposeSame`) takes them up.
 `remat_encoder` recomputes each CAM++ dense layer in the backward pass.
-The other speech encoders (WavLM, Whisper, ERes2Net, ...) raise.
+The WavLM trunk (wavlm, its layer-weighted sum wavlm_weight_sum over a
+softmax of `wavlm_weights`, and hubert, wav2vec2 and mms without the gated
+relative bias) and Whisper (its own plain log-mel; blocks 16-23 of the
+large-v2 trunk concatenated) read the raw waveform at 50 Hz; w2v-BERT reads
+K1's 80-bin fbank paired to 50 Hz; all four take a stride-2 conv to 25 Hz.
+ERes2NetV2's stage-3 frames come at 25 Hz (a stride-1 conv) and ReDimNet's
+C·F frames at 100 Hz (a stride-4 conv), both from K1's fbank at feat_dim
+bins (60 for redimnet_b0, 72 for b1-b6).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -42,8 +49,13 @@ from .conformer import ConformerEncoder
 from .eda import LSTM
 from .layers import BatchNorm, Conv1d, Linear, dropout, init_weights_
 from .mamba import BiMamba2Block, BiMambaBlock
+from .eres2net import ERes2NetV2
+from .redimnet import ReDimNet
 from .speaker_encoders import ECAPA_TDNN, ResNet34, SimAMResNet34
 from .transformer import TransformerEncoderLayer, sinusoidal_position_encoding
+from .w2vbert import W2vBertConfig, W2vBertModel, fbank_to_w2vbert_features
+from .wavlm import WavLMFlaxConfig, WavLMModel
+from .whisper_encoder import WhisperEncoder, WhisperEncoderConfig
 
 BACKENDS = ("transformer", "conformer", "lstm", "mamba", "mamba_add", "mamba2", "mamba2_add")
 
@@ -86,8 +98,9 @@ class TSVADConfig:
     w2vbert_dim: int = 1024
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP item {item})")
+SSL_TYPES = ("wavlm", "wavlm_weight_sum", "hubert", "wav2vec2", "mms")  # the WavLM trunk, on raw waveforms
+SPEECH_ENCODERS = ("campplus", "ecapa", "resnet34", "simam_resnet34", *SSL_TYPES, "whisper", "w2vbert",
+                   "eres2netv2", *(f"redimnet_b{i}" for i in range(7)))
 
 
 class BackendTransformer(nn.Module):
@@ -210,32 +223,24 @@ class TSVADModel(nn.Module):
         self.dtype = resolve_dtype(dtype)
         dev = resolve_device(device)
         enc_type = c.speech_encoder_type
-        if enc_type not in ("campplus", "ecapa", "resnet34", "simam_resnet34"):
-            _not_ported(f"speech_encoder_type={enc_type!r}", "5, [12]")
+        if enc_type not in SPEECH_ENCODERS and not enc_type.startswith("redimnet"):
+            raise ValueError(f"unknown speech_encoder_type: {enc_type}")
         for kind in (c.single_backend_type, c.multi_backend_type):
             if kind not in BACKENDS:
                 raise ValueError(f"unknown backend type: {kind}")
         with torch.device("meta"):
-            if enc_type == "campplus":
-                self.speech_encoder = CAMPPlus(
-                    feat_dim=c.feat_dim,
-                    block_layers=c.encoder_block_layers,
-                    block_dilations=(1, 2, 2)[: len(c.encoder_block_layers)],
-                    with_dense=False,
-                    remat=remat_encoder,
-                )
-            elif enc_type == "ecapa":  # reference ecapa_channel_1024_wespeaker (model.py:632-655)
-                self.speech_encoder = ECAPA_TDNN(channels=1024, feat_dim=c.feat_dim, with_head=False)
-            else:  # reference resnet34 / simam_resnet34 wespeaker wiring (model.py:584-630)
-                trunk = ResNet34 if enc_type == "resnet34" else SimAMResNet34
-                self.speech_encoder = trunk(feat_dim=c.feat_dim, with_head=False)
+            self.speech_encoder = self._make_encoder(remat_encoder)
             enc_c, emb_c = self.speech_encoder.out_channels, c.speaker_embed_dim
-            if enc_type == "campplus":  # 50 Hz → 25 Hz
-                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=2)
-            elif enc_type == "ecapa":  # 100 Hz → 25 Hz
-                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=4)
-            else:  # 12.5 Hz → 25 Hz
+            if enc_type in ("resnet34", "simam_resnet34"):  # 12.5 Hz → 25 Hz
                 self.speech_down = SpeechFeatUpsample(enc_c, emb_c, upsample=2)
+            elif enc_type == "eres2netv2":  # stage-3 frames are at 25 Hz already
+                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=1)
+            elif enc_type == "ecapa" or enc_type.startswith("redimnet"):  # 100 Hz → 25 Hz
+                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=4)
+            else:  # CAM++, the SSL trunks, Whisper and w2v-BERT: 50 Hz → 25 Hz
+                self.speech_down = ConvBnRelu(enc_c, emb_c, kernel=5, stride=2)
+            if enc_type == "wavlm_weight_sum":  # reference WavLM_weight_sum (model.py:517)
+                self.wavlm_weights = nn.Parameter(torch.zeros(c.wavlm_layers))
             if c.speaker_embed_dim * 2 != c.transformer_embed_dim:
                 self.proj_layer = Linear(2 * c.speaker_embed_dim, c.transformer_embed_dim)
             else:
@@ -250,7 +255,46 @@ class TSVADModel(nn.Module):
             if isinstance(mod, BackendTransformer):
                 mod.pe = torch.from_numpy(sinusoidal_position_encoding(mod.pe.shape[0], mod.pe.shape[1])).to(dev)
         init_weights_(self, torch.Generator().manual_seed(seed))
+        if isinstance(self.speech_encoder, WhisperEncoder):
+            self.speech_encoder.reset_positions_()
         self.eval()
+
+    def _make_encoder(self, remat_encoder: bool) -> nn.Module:
+        """The speech encoder of JAX TSVADModel.setup (tsvad.py:177-289),
+        holding what the JAX variables hold for its frames."""
+        c = self.cfg
+        t = c.speech_encoder_type
+        if t == "campplus":
+            return CAMPPlus(feat_dim=c.feat_dim, block_layers=c.encoder_block_layers,
+                            block_dilations=(1, 2, 2)[: len(c.encoder_block_layers)], with_dense=False,
+                            remat=remat_encoder)
+        if t == "ecapa":  # reference ecapa_channel_1024_wespeaker (model.py:632-655)
+            return ECAPA_TDNN(channels=1024, feat_dim=c.feat_dim, with_head=False)
+        if t in ("resnet34", "simam_resnet34"):  # reference wespeaker wiring (model.py:584-630)
+            return (ResNet34 if t == "resnet34" else SimAMResNet34)(feat_dim=c.feat_dim, with_head=False)
+        if t in SSL_TYPES:
+            # hubert / wav2vec2 / mms (reference model.py:449-493) are the
+            # WavLM trunk without its gated relative position bias
+            wavlm_like = t in ("wavlm", "wavlm_weight_sum")
+            return WavLMModel(WavLMFlaxConfig(
+                encoder_layers=c.wavlm_layers, encoder_embed_dim=c.wavlm_embed_dim,
+                encoder_ffn_embed_dim=4 * c.wavlm_embed_dim, encoder_attention_heads=max(1, c.wavlm_embed_dim // 64),
+                relative_position_embedding=wavlm_like, gru_rel_pos=wavlm_like), dtype=self.dtype)
+        if t == "w2vbert":
+            return W2vBertModel(W2vBertConfig(
+                hidden_size=c.w2vbert_dim, num_layers=c.w2vbert_layers, num_heads=max(1, c.w2vbert_dim // 64),
+                intermediate_size=4 * c.w2vbert_dim, feature_input_dim=2 * c.feat_dim))
+        if t == "whisper":  # reference model.py:556-580: blocks layer_st..layer_ed concatenated at 50 Hz
+            return WhisperEncoder(WhisperEncoderConfig(
+                n_mels=c.whisper_n_mels, d_model=c.whisper_d_model, n_heads=c.whisper_n_heads,
+                n_layers=c.whisper_n_layers, d_ff=4 * c.whisper_d_model),
+                layer_st=c.whisper_layer_st, layer_ed=c.whisper_layer_ed, dtype=self.dtype)
+        if t == "eres2netv2":  # reference ERes2NetV2_COMMON at label rate 25 (magicdata-ramc model.py:586-615)
+            return ERes2NetV2(feat_dim=c.feat_dim, base_width=c.eres2net_base_width, scale=c.eres2net_scale,
+                              expansion=c.eres2net_expansion, with_head=False)
+        # reference ReDimNetB* wiring: un-subsampled 100 Hz frames of C·F; the
+        # fbank width must be the size's (60 for b0, 72 for b1-b6)
+        return ReDimNet(size=t.split("_")[-1], feat_dim=c.feat_dim, with_head=False)
 
     def _make_backend(self, kind: str) -> nn.Module:
         c = self.cfg
@@ -276,6 +320,33 @@ class TSVADModel(nn.Module):
     def device(self) -> torch.device:
         return self.fc.weight.device
 
+    def _encode_waveform(self, audio: torch.Tensor) -> torch.Tensor:
+        """WavLM family and Whisper: (B, N) audio → (B, T50, D)."""
+        if self.cfg.speech_encoder_type == "wavlm_weight_sum":  # softmax-weighted sum over layers[1:]
+            _, layers = self.speech_encoder.extract_features(audio, ret_layer_results=True)
+            stacked = torch.stack(layers[1:], dim=0)
+            w = torch.softmax(self.wavlm_weights, dim=0)  # fp32: the mix promotes, as in JAX
+            return torch.einsum("l,lbtd->btd", w, stacked.float()).to(stacked.dtype)
+        return self.speech_encoder(audio)
+
+    def _encode_fbank(self, audio_or_fbank: torch.Tensor) -> torch.Tensor:
+        """audio (B, N) → mean-normed K1 fbank, or fbank (B, T100, feat) →
+        the encoder's frames."""
+        c = self.cfg
+        if audio_or_fbank.dim() == 2:
+            fbank = F.kaldi_fbank_auto(audio_or_fbank, sample_rate=c.sample_rate, num_mel_bins=c.feat_dim, mean_norm=True)
+        else:
+            fbank = audio_or_fbank
+        t, enc = c.speech_encoder_type, self.speech_encoder
+        if t == "w2vbert":
+            return enc(fbank_to_w2vbert_features(fbank).to(self.dtype))  # (B, T50, D)
+        fbank = fbank.to(self.dtype)
+        if t == "campplus" and c.fused_encoder_inference and not self.training:
+            from ..kernels.cam_block_fused import campplus_frames_fused
+
+            return campplus_frames_fused(enc, fbank)
+        return enc(fbank, mode="frames25" if t == "eres2netv2" else "frames")  # (B, T50, 512) for CAM++
+
     def encode_speech(self, audio_or_fbank: torch.Tensor, n_label_frames: int, freeze_encoder: bool = False) -> torch.Tensor:
         """audio (B, N) or fbank (B, T100, feat) → mix embeddings (B, T25, D).
 
@@ -284,25 +355,20 @@ class TSVADModel(nn.Module):
         tsvad.py:393.
         """
         c = self.cfg
-        if audio_or_fbank.dim() == 2:
-            fbank = F.kaldi_fbank_auto(audio_or_fbank, sample_rate=c.sample_rate, num_mel_bins=c.feat_dim, mean_norm=True)
-        else:
-            fbank = audio_or_fbank
-        fbank = fbank.to(self.dtype)
+        t = c.speech_encoder_type
         enc = self.speech_encoder
-        if c.speech_encoder_type == "campplus" and c.fused_encoder_inference and not self.training:
-            from ..kernels.cam_block_fused import campplus_frames_fused
-
-            x = campplus_frames_fused(enc, fbank)
-        elif freeze_encoder and self.training:
+        frozen = freeze_encoder and self.training
+        if frozen:
             enc.eval()
-            try:
-                with torch.no_grad():
-                    x = enc(fbank, mode="frames")
-            finally:
+        try:
+            with torch.no_grad() if frozen else contextlib.nullcontext():
+                if t in SSL_TYPES or t == "whisper":  # raw waveforms, no fbank
+                    x = self._encode_waveform(audio_or_fbank)
+                else:
+                    x = self._encode_fbank(audio_or_fbank)
+        finally:
+            if frozen:
                 enc.train()
-        else:
-            x = enc(fbank, mode="frames")  # (B, T50, 512) for CAM++
         x = self.speech_down(x)  # (B, T25, 192)
         # align to label length (reference model.py:853-857 allows ±2)
         T = x.shape[1]

@@ -22,8 +22,8 @@ stand-in for the silero-vad ONNX model the reference runs on the host
 Submodules carry the flax names (`Conv_i`, `LayerNorm_i`, `lstm`,
 `Dense_0`), so utils/convert.vad_from_flax maps the JAX variables.
 `save_vad_params`/`load_vad_params` write and read them as one flax-layout
-npz (utils/convert.save_flax_npz); the JAX package's msgpack files are
-refused with the way to convert them.
+npz (utils/convert.save_flax_npz); `load_vad_params` also reads the JAX
+package's flax msgpack file (utils/msgpack.py decodes it).
 """
 
 from __future__ import annotations
@@ -173,17 +173,15 @@ def save_vad_params(path: str, model: NeuralVAD) -> None:
 
 
 def load_vad_params(path: str, model: NeuralVAD) -> NeuralVAD:
-    """Load weights written by `save_vad_params` into `model`."""
+    """Load weights into `model`: the npz of `save_vad_params`, or the flax
+    msgpack file of the JAX package's save_vad_params (its `export-vad`)."""
     from ..utils.convert import load_flax_npz, vad_from_flax
+    from ..utils.msgpack import flax_variables
 
     with open(path, "rb") as f:
-        if f.read(2) != b"PK":
-            raise ValueError(
-                f"{path} is not an npz: a VAD saved by the JAX package (flax msgpack) is not read here; "
-                "load it with flax.serialization in the JAX package and convert its params with "
-                "utils/convert.vad_from_flax, or export a port-trained VAD with `export-vad`"
-            )
-    model.load_state_dict(vad_from_flax(load_flax_npz(path)))
+        data = f.read()
+    variables = load_flax_npz(path) if data[:2] == b"PK" else flax_variables(data, path)
+    model.load_state_dict(vad_from_flax(variables))
     return model
 
 

@@ -62,18 +62,28 @@ their other modules map by name, attention kernels as DenseGeneral.
 
 `vad_from_flax` / `vad_to_flax` and `enhancer_from_flax` /
 `enhancer_to_flax` map the JAX NeuralVAD (its OptimizedLSTMCell `lstm` as
-the EDA's) and MaskDenoiser (its two flax GRUCells, `GRUCell_0` forward and
-`GRUCell_1` backward, as `gru_fwd`/`gru_bwd`: ir|iz|in kernels (Din, D)
-each and biases → input.weight (3D, Din), input.bias (3D,); hr|hz → hidden
-.weight (2D, D); hn → hidden_n); their convs, LayerNorms and Denses map by
-name.
+the EDA's) and MaskDenoiser; their convs, LayerNorms and Denses map by
+name. A module's two flax GRUCells under nn.RNN (the enhancer's, ReDimNet's
+GRU block), `GRUCell_0` forward and `GRUCell_1` reversed, map by name to
+`gru_fwd`/`gru_bwd` (models/enhancer.GRU): ir|iz|in kernels (Din, D) each
+and biases → input.weight (3D, Din), input.bias (3D,); hr|hz → hidden
+.weight (2D, D); hn → hidden_n.
 
-`conformer`, the ECAPA/ResNet34/SimAM speech encoders, the TS-VAD
+The speech-encoder zoo is ported with the flax names too:
+`wavlm_from_flax`, `whisper_from_flax`, `w2vbert_from_flax`,
+`eres2net_from_flax` and `redimnet_from_flax` (each with its `_to_flax`)
+are `named_from_flax` (`named_to_flax`) under the trunk's name. The
+parameters a module holds directly (WavLM's `grep_a` and
+`relative_attention_bias`, Whisper's `embed_positions`, w2v-BERT's
+`distance_embedding`, ReDimNet's `inputs_weights_i`; TS-VAD's
+`wavlm_weights`) keep their name and shape.
+
+`conformer`, the speech encoders but CAM++, the TS-VAD
 `conformer` and BiLSTM (`lstm_fwd`/`lstm_bwd` for flax's
 OptimizedLSTMCell_0/_1) backends and the upsampling `speech_down` go
 through them inside `tsvad_from_flax`/`tsvad_to_flax`, `eda_from_flax`/
 `eend_to_flax` and `spk_from_flax`/`spk_to_flax`; `encoder_from_flax` /
-`encoder_to_flax` map any speech encoder by its export-encoder name.
+`encoder_to_flax` map any speech encoder by its export-encoder or zoo name.
 """
 
 from __future__ import annotations
@@ -81,7 +91,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -241,15 +251,64 @@ _ATT = ("query", "key", "value")
 _TRANSPOSED = ("up", "up2", "up5")
 
 
-def named_from_flax(params: dict, stats: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """flax variables of a module ported with the flax names → state-dict
-    entries under `prefix`."""
+# parameters a module holds directly (flax `self.param`), kept as they are:
+# WavLM's `grep_a` and `relative_attention_bias`, Whisper's `embed_positions`,
+# w2v-BERT's `distance_embedding`, ReDimNet's `inputs_weights_i`
+_RAW_LEAF = re.compile(r"grep_a|relative_attention_bias|embed_positions|distance_embedding|inputs_weights_\d+")
+# a module's two flax GRUCells under nn.RNN, forward and reversed (the
+# enhancer's, ReDimNet's GRU block): `GRUCell_0|1/{ir,iz,in,hr,hz,hn}` → the
+# GRU Linears of models/enhancer.GRU, `gru_fwd|gru_bwd.{input,hidden,hidden_n}`
+_GRU_CELLS = {"GRUCell_0": "gru_fwd", "GRUCell_1": "gru_bwd"}
+_GRU_LINEARS = {"input": ("ir", "iz", "in"), "hidden": ("hr", "hz"), "hidden_n": ("hn",)}
+
+
+def _gru_from_flax(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax GRUCell params (ir|iz|in with bias, hr|hz without, hn with) →
+    GRU input/hidden/hidden_n Linears under `prefix`."""
+    sd = {}
+    for linear, gates in _GRU_LINEARS.items():
+        g = [p[x] for x in gates]
+        sd[f"{prefix}.{linear}.weight"] = _t(np.concatenate([x["kernel"] for x in g], 1).T)
+        if "bias" in g[0]:
+            sd[f"{prefix}.{linear}.bias"] = _t(np.concatenate([x["bias"] for x in g]))
+    return sd
+
+
+def _gru_to_flax(params: dict, path: Tuple[str, ...], linear: str, leaf: str, w: np.ndarray) -> None:
+    """One GRU Linear split into the cell's gate Denses under `path`; the inverse of `_gru_from_flax`."""
+    gates = _GRU_LINEARS[linear]
+    for gate, wg in zip(gates, np.split(w, len(gates), axis=0)):
+        _put(params, (*path, gate, "kernel" if leaf == "weight" else "bias"), wg.T if leaf == "weight" else wg)
+
+
+def _split_gru_cells(params: dict, prefix: Tuple[str, ...] = ()):
+    """(params without the GRU cells, [(state-dict path of the GRU, cell params)])."""
+    rest, cells = {}, []
+    for k, v in params.items():
+        if k in _GRU_CELLS and isinstance(v, dict) and "ir" in v:
+            cells.append((prefix + (_GRU_CELLS[k],), v))
+        elif isinstance(v, dict):
+            rest[k], more = _split_gru_cells(v, prefix + (k,))
+            cells += more
+        else:
+            rest[k] = v
+    return rest, cells
+
+
+def named_from_flax(params: dict, stats: Optional[dict] = None, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax variables (params, and batch_stats if any) of a module ported
+    with the flax names → state-dict entries under `prefix`."""
     sd: Dict[str, torch.Tensor] = {}
     pre = (prefix,) if prefix else ()
+    params, cells = _split_gru_cells(params)
+    for path, p in cells:
+        sd.update(_gru_from_flax(p, ".".join(pre + path)))
     for path, w in _flatten(params):
         mod, leaf = path[:-1], path[-1]
         name = ".".join(pre + mod)
-        if leaf == "kernel":
+        if _RAW_LEAF.fullmatch(leaf):
+            sd[".".join(pre + path)] = _t(w)
+        elif leaf == "kernel":
             if mod[-1] in _ATT and w.ndim == 3:  # (D, H, Dh)
                 w = w.reshape(w.shape[0], -1).T
             elif mod[-1] == "out" and w.ndim == 3:  # (H, Dh, D)
@@ -263,7 +322,7 @@ def named_from_flax(params: dict, stats: dict, prefix: str = "") -> Dict[str, to
             sd[f"{name}.weight"] = _t(w)
         else:
             sd[f"{name}.{leaf}"] = _t(w.reshape(-1))
-    for path, w in _flatten(stats):
+    for path, w in _flatten(stats or {}):
         name = ".".join(pre + path[:-1])
         sd[f"{name}.{_BN_LEAF[path[-1]]}"] = _t(w)
         sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -279,7 +338,12 @@ def named_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int = 0) -> di
             continue
         w = t.detach().cpu().float().numpy()
         mod, leaf = tuple(name.split(".")[:-1]), name.split(".")[-1]
-        if leaf in ("running_mean", "running_var"):
+        if _RAW_LEAF.fullmatch(leaf):
+            _put(out["params"], (*mod, leaf), w)
+        elif len(mod) >= 2 and mod[-2] in _GRU_CELLS.values() and mod[-1] in _GRU_LINEARS:
+            cell = {v: k for k, v in _GRU_CELLS.items()}[mod[-2]]
+            _gru_to_flax(out["params"], (*mod[:-2], cell), mod[-1], leaf, w)
+        elif leaf in ("running_mean", "running_var"):
             _put(out["batch_stats"], (*mod, "mean" if leaf == "running_mean" else "var"), w)
         elif leaf == "bias":
             _put(out["params"], (*mod, "bias"), w.reshape(num_heads, -1) if mod[-1] in _ATT and num_heads else w)
@@ -372,9 +436,16 @@ def _speech_encoder_from_flax(params: dict, stats: dict) -> Dict[str, torch.Tens
     return named_from_flax(params, stats)
 
 
+# The zoo's trunks carry the flax names (their own parameters and ReDimNet's
+# GRU cells included), so their converters are the named ones.
+wavlm_from_flax = whisper_from_flax = w2vbert_from_flax = eres2net_from_flax = redimnet_from_flax = named_from_flax
+wavlm_to_flax = whisper_to_flax = w2vbert_to_flax = eres2net_to_flax = redimnet_to_flax = named_to_flax
+
+
 def encoder_from_flax(name: str, params: dict, stats: dict) -> Dict[str, torch.Tensor]:
     """A speech encoder's flax variables → its state dict, by the
-    export-encoder name (campplus | ecapa | resnet34)."""
+    export-encoder or zoo name (campplus | ecapa | resnet34 | simam_resnet34
+    | eres2net | redimnet | wavlm | whisper); all but CAM++ map by name."""
     return campplus_from_flax(params, stats) if name == "campplus" else named_from_flax(params, stats)
 
 
@@ -385,18 +456,20 @@ def encoder_to_flax(name: str, state_dict: Dict[str, torch.Tensor]) -> dict:
 
 def tsvad_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX TSVADModel variables ({'params', 'batch_stats'}, arrays) →
-    this package's TSVADModel state_dict (CAM++, ECAPA, ResNet34 or
-    SimAM-ResNet34 encoder; transformer, conformer, BiLSTM, BiMamba or
-    BiMamba-2 backends)."""
+    this package's TSVADModel state_dict (any speech encoder, with
+    `wavlm_weights` for wavlm_weight_sum; transformer, conformer, BiLSTM,
+    BiMamba or BiMamba-2 backends)."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
-    enc = _speech_encoder_from_flax(p["speech_encoder"], s["speech_encoder"])
+    enc = _speech_encoder_from_flax(p["speech_encoder"], s.get("speech_encoder", {}))
     sd.update({f"speech_encoder.{k}": v for k, v in enc.items()})
     for name in ("speech_down", "backend_down"):  # ConvBnRelu, or SpeechFeatUpsample
         sd.update(named_from_flax(p[name], s[name], name))
     if "proj_layer" in p:
         sd["proj_layer.weight"] = _t(p["proj_layer"]["kernel"].T)
         sd["proj_layer.bias"] = _t(p["proj_layer"]["bias"])
+    if "wavlm_weights" in p:
+        sd["wavlm_weights"] = _t(p["wavlm_weights"])
     for name in ("single_backend", "multi_backend"):
         sd.update(_backend_from_flax_any(p[name], s.get(name, {}), name))
     sd["fc.weight"] = _t(p["fc"]["kernel"].T)
@@ -511,7 +584,9 @@ def tsvad_to_flax(state_dict: Dict[str, torch.Tensor], num_heads: int) -> dict:
         w = t.detach().cpu().float().numpy()
         parts = name.split(".")
         top, leaf = parts[0], parts[-1]
-        if (top == "speech_encoder" and not campplus) or top in ("speech_down", "backend_down") \
+        if top == "wavlm_weights":
+            _put(out["params"], (top,), w)
+        elif (top == "speech_encoder" and not campplus) or top in ("speech_down", "backend_down") \
                 or parts[1] == "conformer":
             named.setdefault(top, {})[name[len(top) + 1:]] = t
         elif top == "speech_encoder":
@@ -936,33 +1011,11 @@ def vad_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     return out
 
 
-_GRUS = {"gru_fwd": "GRUCell_0", "gru_bwd": "GRUCell_1"}
-_GRU_LINEARS = {"input": ("ir", "iz", "in"), "hidden": ("hr", "hz"), "hidden_n": ("hn",)}
-
-
 def enhancer_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX MaskDenoiser variables ({'params'}) → MaskDenoiser state_dict."""
-    p = variables["params"]
-    sd = named_from_flax({k: v for k, v in p.items() if k not in _GRUS.values()}, {})
-    for mod, cell in _GRUS.items():
-        for linear, gates in _GRU_LINEARS.items():
-            g = [p[cell][x] for x in gates]
-            sd[f"{mod}.{linear}.weight"] = _t(np.concatenate([x["kernel"] for x in g], 1).T)
-            if "bias" in g[0]:
-                sd[f"{mod}.{linear}.bias"] = _t(np.concatenate([x["bias"] for x in g]))
-    return sd
+    return named_from_flax(variables["params"])
 
 
 def enhancer_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     """MaskDenoiser state_dict → JAX variables as numpy; the inverse of `enhancer_from_flax`."""
-    out = _named_only_params({n: t for n, t in state_dict.items() if n.split(".")[0] not in _GRUS})
-    for name, t in state_dict.items():
-        mod, linear, leaf = (name.split(".") + [None, None])[:3]
-        if mod not in _GRUS:
-            continue
-        gates = _GRU_LINEARS[linear]
-        w = t.detach().cpu().float().numpy()
-        for gate, wg in zip(gates, np.split(w, len(gates), axis=0)):
-            _put(out["params"], (_GRUS[mod], gate, "kernel" if leaf == "weight" else "bias"),
-                 wg.T if leaf == "weight" else wg)
-    return out
+    return _named_only_params(state_dict)

@@ -1,7 +1,7 @@
 """Port parity of the learned enhancer and the enhancement hooks: stft /
 istft, MaskDenoiser (both GRU directions) with JAX weights carried across
 and back, si_snr, make_enhance_loss and three trainer steps, the enhancer
-npz and the refusal of the JAX package's, `neural_enhancer_fn`, the port's
+npz and the JAX package's (read bit for bit), `neural_enhancer_fn`, the port's
 copy of data/enhance.py (spectral_gate_denoise, noisy_pair_batches,
 enhance_corpus), the TS-VAD dataset's enhancer hooks (the same items, so
 the same order of rng draws, at eval, in training with enhance_prob 0.5 and
@@ -138,8 +138,13 @@ def test_enhancer_npz_and_neural_enhancer_fn_match_jax(pair, tmp_path):
     JM.save_enhancer(jpath, v, JM.EnhancerConfig(**TINY))
     with np.load(path) as z:
         assert all(int(z[k]) == TINY[k] for k in M.CONFIG_KEYS)
-    with pytest.raises(ValueError, match="convert.enhancer_from_flax"):
-        M.load_enhancer(jpath, "cpu")
+    # the JAX package's npz (flax msgpack bytes under 'params') reads too, to
+    # the weights enhancer_from_flax gives: the same forward, bit for bit
+    from_jax = M.load_enhancer(jpath, "cpu")
+    converted = M.MaskDenoiser(M.EnhancerConfig(**TINY), device="cpu", seed=5)
+    converted.load_state_dict(convert.enhancer_from_flax(v))
+    with torch.no_grad():
+        assert torch.equal(from_jax(torch.from_numpy(audio)), converted(torch.from_numpy(audio)))
     got = M.neural_enhancer_fn(path, "cpu")(audio[0], 8000)
     want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(audio[:1])))[0]  # what JAX's neural_enhancer_fn computes
     assert got.dtype == np.float32 and got.shape == audio[0].shape

@@ -1,5 +1,7 @@
 """The port stands alone: no JAX, no JAX package, no scikit-learn, umap,
-hdbscan or msgpack (the GPU hosts have none), no silent CPU fallback."""
+hdbscan or msgpack (the GPU hosts have none), no silent CPU fallback. Every
+module of the port is imported, and the TS-VAD speech-encoder zoo and the
+flax msgpack decoder run, with those packages blocked."""
 
 import ast
 import os
@@ -73,6 +75,20 @@ with torch.no_grad():
     out = m(torch.from_numpy((0.1 * rng.standard_normal((2, 16000))).astype(np.float32)),
             torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32)))
 assert out.shape == (2, 25, 4) and torch.isfinite(out).all(), out.shape
+zoo = (("wavlm_weight_sum", dict(wavlm_layers=1, wavlm_embed_dim=64)),
+       ("whisper", dict(whisper_d_model=64, whisper_n_layers=2, whisper_n_heads=1, whisper_layer_st=0,
+                        whisper_layer_ed=1)),
+       ("w2vbert", dict(w2vbert_layers=1, w2vbert_dim=64)), ("eres2netv2", dict(eres2net_base_width=4)),
+       ("redimnet_b0", dict(feat_dim=60)))
+a16 = torch.from_numpy((0.1 * rng.standard_normal((2, 16000))).astype(np.float32))
+e16 = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
+for enc, kw in zoo:
+    zm = TSVADModel(TSVADConfig(**{TINY!r}, speech_encoder_type=enc, **kw), device="cpu", seed=1)
+    with torch.no_grad():
+        out = zm(a16, e16)
+    assert out.shape == (2, 25, 4) and torch.isfinite(out).all(), (enc, out.shape)
+from speaker_diarization_tpu_torch.utils.msgpack import from_bytes
+assert from_bytes(b"\\x81\\xa1a\\x01") == {{"a": 1}}
 from speaker_diarization_tpu_torch.models.eda import EendEdaModel
 e = EendEdaModel(d_model=16, n_layers=1, n_heads=2, d_ff=32, max_attractors=3, device="cpu", seed=1)
 with torch.no_grad():

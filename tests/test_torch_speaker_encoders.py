@@ -269,8 +269,14 @@ def test_extract_embeddings_from_an_ecapa_npz_matches_jax(tmp_path):
 
 
 def test_build_speaker_encoder_names():
+    """All eight names of the JAX zoo build the port's module of the same
+    class name; an unknown name raises KeyError, as in JAX."""
+    assert set(S.SPEAKER_ENCODERS) == set(JS.SPEAKER_ENCODERS)
     assert isinstance(S.build_speaker_encoder("ecapa_tdnn", channels=16, feat_dim=FEAT), S.ECAPA_TDNN)
     assert isinstance(S.build_speaker_encoder("simam_resnet34", feat_dim=FEAT, m_channels=4), S.SimAMResNet34)
-    for name in S.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-            S.build_speaker_encoder(name)
+    with torch.device("meta"):
+        for name in JS.SPEAKER_ENCODERS:
+            enc = S.build_speaker_encoder(name)
+            assert type(enc).__name__ == JS.SPEAKER_ENCODERS[name].split(":")[1], name
+    with pytest.raises(KeyError):
+        S.build_speaker_encoder("wavlm_large")

@@ -216,14 +216,15 @@ def test_encoder_npz_round_trip_both_ways(classifier, tmp_path):
 
 def test_unported_encoders_raise():
     """ECAPA and ResNet34 are ported now (tests/test_torch_speaker_encoders.py);
-    any other encoder name raises as the JAX classifier does, and the zoo's
-    unported encoders cite the ROADMAP."""
+    any other encoder name raises as the JAX classifier does
+    (spk_embed.py:63), and the zoo builds all eight of its names."""
+    from speaker_diarization_tpu_torch.models.eres2net import ERes2Net
     from speaker_diarization_tpu_torch.models.speaker_encoders import build_speaker_encoder
 
-    with pytest.raises(ValueError, match="unknown encoder"):
-        E.SpeakerClassifier(E.SpkEmbedConfig(encoder="wavlm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        build_speaker_encoder("eres2net")
+    for name in ("wavlm", "eres2net"):
+        with pytest.raises(ValueError, match="unknown encoder"):
+            E.SpeakerClassifier(E.SpkEmbedConfig(encoder=name), device="cpu")
+    assert isinstance(build_speaker_encoder("eres2net", m_channels=4, num_blocks=(1, 1, 1, 1)), ERes2Net)
 
 
 # ---------------------------------------------------------------------------

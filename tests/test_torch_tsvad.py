@@ -114,12 +114,28 @@ def test_weight_conversion_round_trips(tsvad_pair, tmp_path):
         np.testing.assert_allclose(c[k], a[k], rtol=0, atol=0, err_msg=k)
 
 
+JAX_SPEECH_ENCODERS = ("campplus", "wavlm", "wavlm_weight_sum", "w2vbert", "hubert", "wav2vec2", "mms", "whisper",
+                       "resnet34", "simam_resnet34", "ecapa", "eres2netv2",
+                       *(f"redimnet_b{i}" for i in range(7)))  # JAX TSVADConfig, tsvad.py:52-53
+
+
 def test_unported_encoders_and_backends_raise():
-    """The encoders not ported yet raise, citing the ROADMAP; the conformer
-    and lstm backends are ported (tests/test_torch_conformer.py) and an
-    unknown backend raises as in JAX."""
-    for kw in (dict(speech_encoder_type="wavlm"), dict(speech_encoder_type="whisper")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-            TSVADModel(TSVADConfig(**SMALL, **kw), device="cpu")
+    """Every speech encoder of the JAX TSVADConfig builds (the zoo is ported:
+    tests/test_torch_wavlm.py, _whisper, _w2vbert, _eres2net, _redimnet);
+    an unknown encoder or backend raises ValueError as in JAX."""
+    from speaker_diarization_tpu_torch.models.tsvad import SPEECH_ENCODERS
+
+    assert set(SPEECH_ENCODERS) == set(JAX_SPEECH_ENCODERS)
+    zoo = dict(wavlm_layers=1, wavlm_embed_dim=64, w2vbert_layers=1, w2vbert_dim=64, whisper_d_model=64,
+               whisper_n_layers=2, whisper_n_heads=1, whisper_layer_st=0, whisper_layer_ed=1)
+    for enc in JAX_SPEECH_ENCODERS:
+        feat = 60 if enc == "redimnet_b0" else 72 if enc.startswith("redimnet") else 80
+        model = TSVADModel(TSVADConfig(**SMALL, **zoo, speech_encoder_type=enc, feat_dim=feat), device="cpu")
+        down = model.speech_down
+        assert (down.conv if hasattr(down, "conv") else down.up).in_channels == model.speech_encoder.out_channels
+    with pytest.raises(KeyError):  # no such size, as in JAX
+        TSVADModel(TSVADConfig(**SMALL, speech_encoder_type="redimnet_b9"), device="cpu")
+    with pytest.raises(ValueError, match="unknown speech_encoder_type"):
+        TSVADModel(TSVADConfig(**SMALL, speech_encoder_type="wavlm_large"), device="cpu")
     with pytest.raises(ValueError, match="unknown backend type"):
         TSVADModel(TSVADConfig(**SMALL, multi_backend_type="gru"), device="cpu")

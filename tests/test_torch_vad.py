@@ -1,7 +1,7 @@
 """Port parity of the neural VAD: NeuralVAD with JAX weights carried across
 (and back), its causality, `neural_sad`, the copied label and timestamp
 helpers, `make_vad_loss` and three trainer steps, the npz format and the
-refusal of the JAX package's msgpack file, and the CLI's `train --family
+JAX package's msgpack file (read bit for bit), and the CLI's `train --family
 vad` → `export-vad` → `cluster --sad neural` held to the JAX CLI's cluster
 on the same weights, against the JAX package.
 
@@ -171,6 +171,9 @@ def test_vad_loss_and_trainer_steps_match_jax(pair):
 
 
 def test_vad_npz_round_trip_and_msgpack_refusal(pair, tmp_path):
+    """The npz both ways; the JAX package's msgpack file reads to the
+    weights vad_from_flax gives (the same forward, bit for bit); bytes that
+    are neither are refused, saying what they hold."""
     _, v, model, audio = pair
     path = str(tmp_path / "vad.npz")
     V.save_vad_params(path, model)
@@ -178,16 +181,24 @@ def test_vad_npz_round_trip_and_msgpack_refusal(pair, tmp_path):
     with torch.no_grad():
         assert torch.equal(other(torch.from_numpy(audio)), model(torch.from_numpy(audio)))
     jpath = str(tmp_path / "vad.msgpack")
-    with open(jpath, "wb") as f:
-        f.write(flax.serialization.to_bytes(v))  # the JAX package's save_vad_params
-    with pytest.raises(ValueError, match="convert.vad_from_flax"):
-        V.load_vad_params(jpath, model)
+    JV.save_vad_params(jpath, v)  # the JAX package's writer: flax msgpack
+    from_jax = V.load_vad_params(jpath, V.NeuralVAD(V.NeuralVADConfig(**TINY), device="cpu", seed=9))
+    converted = V.NeuralVAD(V.NeuralVADConfig(**TINY), device="cpu", seed=8)
+    converted.load_state_dict(convert.vad_from_flax(v))
+    with torch.no_grad():
+        assert torch.equal(from_jax(torch.from_numpy(audio)), converted(torch.from_numpy(audio)))
+    bad = str(tmp_path / "vad.bin")
+    with open(bad, "wb") as f:
+        f.write(b"\xc1not a checkpoint")
+    with pytest.raises(ValueError, match="neither an npz nor a flax msgpack file.*c1 6e 6f 74"):
+        V.load_vad_params(bad, model)
 
 
 def test_cli_train_export_then_cluster_neural_matches_jax_cluster(tmp_path, capsys):
     """`train --family vad` (subsampling forced to 1, 2 steps) → `export-vad`
     → `cluster --sad neural`; the JAX CLI's cluster, given the same weights
-    as its msgpack, writes the same turns."""
+    as its msgpack, writes the same turns, and so does the port's given that
+    msgpack."""
     root = str(tmp_path)
     data = simulate.simulate_corpus(os.path.join(root, "c"), n_mixtures=2, n_speakers=2, rate=8000, seed=3,
                                     src_speakers=4, utts_per_speaker=3)
@@ -234,6 +245,9 @@ def test_cli_train_export_then_cluster_neural_matches_jax_cluster(tmp_path, caps
     got, want = read_rttm(f"{root}/hyp.rttm"), read_rttm(f"{root}/jhyp.rttm")
     assert got and [(t.rec, round(t.start, 6), round(t.dur, 6)) for t in got] == \
         [(t.rec, round(t.start, 6), round(t.dur, 6)) for t in want]
+    # the port's cluster reads the JAX msgpack as well, to the same turns
+    assert port_cli(["cluster", "--out", f"{root}/mhyp.rttm", "--vad-ckpt", msg, "--device", "cpu"] + common) == 0
+    assert [(t.rec, t.start, t.dur) for t in read_rttm(f"{root}/mhyp.rttm")] == [(t.rec, t.start, t.dur) for t in got]
 
 
 def test_vad_entry_points_raise_without_cuda(monkeypatch, tmp_path):
