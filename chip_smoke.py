@@ -118,7 +118,24 @@ stages (4 steps each, `infer --threshold-sweep`, `score`), `simulate-meetings` a
 each scored), `train --family vad` → `export-vad` → `cluster --sad
 neural`, and its enhancer_eval stage (`train --family enhance` →
 `export-enhancer` → the TS-VAD `infer` with `--set enhancer=neural:…`) on
-the same corpus, each stage's output checked. Each phase prints one line, with the
+the same corpus, each stage's output checked. Last:
+- [parallel] the parallel layer at world size 1 on NCCL (a tcp://127.0.0.1
+  init): three full-width TS-VAD train steps (TSVADConfig(), bf16, batch 64
+  × 4 s, the recipe's settings) through Trainer(mesh=...) with all_reduce
+  and with deterministic_reduce, each bitwise equal to the plain trainer's
+  from the same weights (fbank 1 a step), timed beside it; the synced
+  BatchNorm bitwise equal to the plain one; ring attention (B 2, T 4096, H
+  20, D 64, fp32) forward and backward against full attention;
+- [dicow] DiCoW at DiCoW v3's widths (the large-v3 encoder, 32 × 1280, 128
+  mels, FDDT before every layer, CTC over 51,866 tokens; seeded weights;
+  4 streams of 30 s): the bf16 forward within 5e-2 mean-abs of the fp32
+  forward, timed with the profiler's busy share; five adam steps on one
+  batch lower the CTC loss; the Whisper decoder (4 × 1280) greedy-decodes
+  32 tokens; no kernel;
+- [dicow_hermetic] JAX's tests/test_dicow_hermetic.py on the card: 400
+  unconditioned and 300 conditioned steps, the held-out conditioned TER
+  below 0.15 and the all-target ablation's above it + 0.2.
+Each phase prints one line, with the
 seconds since the start, and raises on failure. The CLI verbs of the main
 path run as `python -m speaker_diarization_tpu_torch.cli` processes; those
 of the recipe chain call the same entry point in this process. The
@@ -1177,6 +1194,343 @@ def zoo_phase(dev, smi, plain_forward, want, reset_counts, fixed_batch_steps):
         torch.cuda.empty_cache()
     phase("zoo", f"{len(zoo_types)} speech encoders in {time.perf_counter() - t_zoo:.1f} s")
     return zoo_launches
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(dev, smi, reset_counts, want):
+    """[parallel]: the parallel layer at world size 1 on NCCL (one H100 holds
+    one rank; the multi-rank behaviour is held on the CPU over gloo by
+    tests/test_torch_parallel.py). Three full-width TS-VAD train steps
+    (TSVADConfig(), bf16, batch 64 x 4 s at 16 kHz, the recipe's settings as
+    `bench.py --train` runs them) through Trainer(mesh=...) in both reduce
+    modes, each bitwise equal to the plain trainer's from the same weights;
+    fbank 1 a step. The synced BatchNorm at world size 1 bitwise equal to the
+    plain one; ring attention (B 2, T 4096, H 20, D 64, fp32) forward and
+    backward against full attention. → the launches of a mesh step."""
+    import torch
+    import torch.distributed as dist
+
+    from speaker_diarization_tpu_torch.bench import make_train_batches, recipe_trainer
+    from speaker_diarization_tpu_torch.models.layers import BatchNorm
+    from speaker_diarization_tpu_torch.models.tsvad import TSVADConfig, TSVADModel
+    from speaker_diarization_tpu_torch.parallel.collectives import data_parallel
+    from speaker_diarization_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from speaker_diarization_tpu_torch.parallel.ring_attention import ring_self_attention
+    from speaker_diarization_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    init_distributed(dev, init_method=f"tcp://127.0.0.1:{_free_port()}")
+    deterministic_cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the plain control must repeat itself bit for bit
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"process group {dist.get_backend()} x {dist.get_world_size()}, want nccl x 1")
+        mesh = make_mesh()
+        phase("parallel", f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} at world size 1 on a "
+              f"tcp://127.0.0.1 init; mesh {mesh.shape}")
+        cfg, n_label = TSVADConfig(), 100
+        model = TSVADModel(cfg, dtype="bf16", device=dev, seed=0)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        batches = make_train_batches(cfg, 64, 4.0, 3, seed=90, device=dev)
+        runs = {}
+        for name in ("plain", "mesh all_reduce", "mesh deterministic_reduce", "plain again"):
+            model.load_state_dict(init)
+            trainer = recipe_trainer(model, n_label)
+            if name.startswith("mesh"):
+                trainer = Trainer(model, trainer.loss_fn, dataclasses.replace(
+                    trainer.cfg, deterministic_reduce=name.endswith("deterministic_reduce")), mesh=mesh)
+            times, losses = [], []
+            torch.cuda.synchronize()
+            reset_counts()
+            for b in batches:
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(b)["loss"].item())  # .item() drains the device
+                times.append(1e3 * (time.perf_counter() - t0))
+            launches = launch_counts()
+            if launches != want(fbank=3):
+                raise AssertionError(f"{name}: three steps launched {launches}, want fbank 3")
+            runs[name] = ({k: v.clone() for k, v in model.state_dict().items()}, losses, times)
+            del trainer
+        ref = runs["plain"][0]
+        for name, (sd, losses, times) in runs.items():
+            same = all(torch.equal(sd[k], ref[k]) for k in ref)
+            phase("parallel", f"TS-VAD bf16 64 x 4 s, 3 recipe steps, {name}: losses {[round(v, 6) for v in losses]}; "
+                  f"ms per step {[round(t, 3) for t in times]} (steps 2-3 mean {sum(times[1:]) / 2:.3f}); "
+                  f"fbank 1 a step; weights and statistics bitwise equal to the plain run: {same} | {smi}")
+            if not same:
+                raise AssertionError(f"{name}: the weights after three steps differ from the plain trainer's")
+        del runs, ref, init, batches, model
+        torch.cuda.empty_cache()
+
+        # the synced BatchNorm at world size 1 against the plain one
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn(64, 256, 400, device=dev, generator=g)
+        w = torch.randn(64, 256, 400, device=dev, generator=g)
+        outs = []
+        for synced in (False, True):
+            bn = BatchNorm(256).to(dev).train()
+            xi = x.clone().requires_grad_()
+            with data_parallel(mesh.data if synced else None):
+                y = bn(xi)
+            (y * w).sum().backward()
+            outs.append((y.detach(), xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var))
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        phase("parallel", f"synced BatchNorm (64, 256, 400) fp32 at world size 1: output, input and affine "
+              f"gradients and running statistics bitwise equal to the plain BatchNorm: {same}")
+        if not same:
+            raise AssertionError("the synced BatchNorm differs from the plain one at world size 1")
+        del x, w, outs
+
+        # ring attention at world size 1 against full attention
+        B, T, H, D = 2, 4096, 20, 64
+        q, k, v, w = (torch.randn(B, T, H, D, device=dev, generator=g) for _ in range(4))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        out = ring_self_attention(q, k, v, mesh)
+        (out * w).sum().backward()
+        got = [out.detach(), q.grad.clone(), k.grad.clone(), v.grad.clone()]
+        for t in (q, k, v):
+            t.grad = None
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * D**-0.5
+        ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+        (ref * w).sum().backward()
+        want_t = [ref.detach(), q.grad, k.grad, v.grad]
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want_t)]
+        bars = [5e-5 * max(1.0, want_t[0].abs().max().item())] + [1e-4 * max(1.0, t.abs().max().item()) for t in
+                                                                   want_t[1:]]
+
+        def ring_step():
+            o = ring_self_attention(q, k, v, mesh)
+            (o * w).sum().backward()
+
+        ms = cuda_ms(ring_step, iters=3, warmup=1)
+        phase("parallel", f"ring attention fp32 ({B}, {T}, {H}, {D}) at world size 1: max-abs out {errs[0]:.3e}, "
+              f"dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv {errs[3]:.3e} against full attention (bars "
+              f"{', '.join(f'{b:.1e}' for b in bars)}); forward + backward {ms:.3f} ms | {smi}")
+        if not all(e <= b for e, b in zip(errs, bars)):
+            raise AssertionError(f"ring attention against full attention: {errs} (bars {bars})")
+        del q, k, v, w, out, ref, s, got, want_t
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic_cudnn
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    phase("parallel", f"done in {time.perf_counter() - t_phase:.1f} s")
+    return {"tsvad_mesh_train_step": want(fbank=1)}
+
+
+# DiCoW v3 (BUT-FIT/DiCoW_v3, fine-tuned from openai/whisper-large-v3-turbo):
+# the large-v3 encoder, 128 mels, FDDT before every layer, a CTC head and the
+# turbo decoder (4 layers) over Whisper's 51,866 tokens
+DICOW_V3 = dict(n_mels=128, n_ctx=1500, d_model=1280, n_heads=20, n_layers=32, d_ff=5120)
+WHISPER_VOCAB = 51866
+
+
+def dicow_phase(dev, smi):
+    """[dicow]: DiCoW at DiCoW v3's widths with seeded weights, 2 recordings
+    x 2 speakers = 4 streams of 30 s, STNO masks from a seeded diarization:
+    the bf16 forward within 5e-2 mean-abs of the fp32 forward (the same
+    weights, fp32 compute), timed with the profiler's busy share; five adam
+    steps at 1e-4 on one batch lower the CTC loss, the step timed; the
+    Whisper decoder (4 x 1280) decodes 32 tokens greedily over the four
+    streams' states. No kernel: the encoder is plain torch, as in JAX."""
+    import numpy as np
+    import torch
+
+    from speaker_diarization_tpu_torch.bench import profile
+    from speaker_diarization_tpu_torch.models.dicow import DiCoWConfig, DiCoWEncoder, ctc_loss
+    from speaker_diarization_tpu_torch.models.whisper_decoder import (WhisperDecoder, WhisperDecoderConfig,
+                                                                      greedy_decode)
+    from speaker_diarization_tpu_torch.models.whisper_encoder import WhisperEncoderConfig
+    from speaker_diarization_tpu_torch.postproc.stno import stno_masks_for_all
+    from speaker_diarization_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = DiCoWConfig(whisper=WhisperEncoderConfig(**DICOW_V3), vocab_size=WHISPER_VOCAB)
+    model = DiCoWEncoder(cfg, dtype="bf16", device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(5)
+    rec = (0.1 * rng.standard_normal((2, 30 * 16000))).astype(np.float32)
+    audio = torch.from_numpy(np.repeat(rec, 2, axis=0)).to(dev)  # each recording once per target speaker
+    masks = []
+    for _ in range(2):
+        diar = np.zeros((2, 1500), np.float32)
+        for s in range(2):
+            for start in rng.integers(0, 1400, 6):
+                diar[s, start:start + int(rng.integers(20, 120))] = 1.0
+        masks.append(stno_masks_for_all(diar))
+    stno = torch.from_numpy(np.concatenate(masks)).to(dev)  # (4, 4, 1500)
+    phase("dicow", f"DiCoW v3 widths ({n_params / 1e6:.1f} M params: 32 x 1280, 20 heads, d_ff 5120, 128 mels, FDDT "
+          f"on all 33 places, CTC over {WHISPER_VOCAB}); 4 streams of 30 s built in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    with torch.no_grad():
+        logits, h = model(audio, stno)
+        model.dtype = torch.float32  # the same weights at fp32 compute
+        ref, _ = model(audio, stno)
+        model.dtype = torch.bfloat16
+        torch.cuda.synchronize()
+        mean_err = (logits - ref).abs().mean().item()
+        scale = max(1.0, ref.abs().mean().item())
+        phase("dicow", f"bf16 {tuple(audio.shape)} -> logits {tuple(logits.shape)}, hidden {tuple(h.shape)}: "
+              f"mean-abs {mean_err:.3e} against the fp32 forward (bar 5e-2 x {scale:.3f})")
+        if tuple(logits.shape) != (4, 1500, WHISPER_VOCAB) or not torch.isfinite(logits).all() \
+                or not mean_err <= 5e-2 * scale:
+            raise AssertionError(f"DiCoW bf16 forward: mean-abs {mean_err} against fp32")
+        del ref
+
+        def forward():
+            return model(audio, stno)[0]
+
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        dev_ms = profile(forward, n=2)[1]
+        fwd_ms = sorted(walls)[1]
+        phase("throughput", f"DiCoW v3 bf16 forward, 4 x 30 s: {fwd_ms:.3f} ms (runs {[round(t, 3) for t in walls]}), "
+              f"device {dev_ms:.3f} ms, busy {dev_ms / fwd_ms:.3f}; {4 * 30 / (fwd_ms / 1e3):.1f} audio-s/s | {smi}")
+
+    labels = torch.from_numpy(rng.integers(1, WHISPER_VOCAB, (4, 120)).astype(np.int32)).to(dev)
+    label_pad = torch.from_numpy((np.arange(120)[None] >= np.array([120, 90, 60, 100])[:, None]).astype(np.float32)).to(dev)
+    batch = dict(audio=audio, stno=stno, labels=labels, label_pad=label_pad)
+
+    def loss_fn(m, b, generator, train):
+        lo, _ = m(b["audio"], b["stno"])
+        return ctc_loss(lo, torch.zeros(lo.shape[:2], device=lo.device), b["labels"], b["label_pad"]), {}
+
+    trainer = Trainer(model, loss_fn, TrainerConfig(optimizer="adam", schedule="const", learning_rate=1e-4))
+    losses, steps = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch)["loss"].item())
+        steps.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_dev = profile(lambda: trainer.train_step(batch), n=1)[1]
+    step_ms = sum(steps[1:]) / 4
+    phase("dicow", f"5 adam steps at 1e-4 on one batch (bf16, CTC over 4 x 1500 frames, labels of 120/90/60/100): "
+          f"losses {[round(v, 3) for v in losses]}; step {step_ms:.3f} ms (steps 2-5), device {step_dev:.3f} ms, "
+          f"busy {step_dev / step_ms:.3f}; peak memory {peak:.1f} GiB | {smi}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the DiCoW CTC loss did not fall on a fixed batch: {losses}")
+    del trainer
+    model.eval()
+    with torch.no_grad():
+        states = model(audio, stno)[1]
+    del model
+    torch.cuda.empty_cache()
+    dec = WhisperDecoder(WhisperDecoderConfig(vocab_size=WHISPER_VOCAB, d_model=1280, n_heads=20, n_layers=4,
+                                              d_ff=5120, max_positions=448), dtype="bf16", device=dev, seed=1)
+    start = np.full((4, 1), 50258, np.int32)  # <|startoftranscript|>
+    greedy_decode(dec, states, start, 2, eos_id=-1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = greedy_decode(dec, states, start, 32, eos_id=-1)  # no eos id: all 32 tokens are decoded
+    dec_ms = 1e3 * (time.perf_counter() - t0)
+    phase("dicow", f"Whisper decoder (4 x 1280, bf16) greedy_decode of 32 tokens for 4 streams over 1500 states: "
+          f"{dec_ms:.1f} ms ({dec_ms / 32:.2f} ms a token, the prefix re-scored each step); tokens "
+          f"{tuple(toks.shape)} | {smi}")
+    if toks.shape != (4, 33) or not ((toks >= 0) & (toks < WHISPER_VOCAB)).all():
+        raise AssertionError(f"greedy_decode gave {toks.shape}")
+    del dec, states
+    torch.cuda.empty_cache()
+    phase("dicow", f"done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def token_error_rate(hyps, labels, mask) -> float:
+    """Token errors over reference tokens (JAX tests/test_dicow_hermetic.py:
+    difflib's matching blocks)."""
+    import difflib
+
+    e = t = 0
+    for h, ref, m in zip(hyps, labels, mask):
+        r = [int(x) for x, mm in zip(ref, m) if mm > 0]
+        sm = difflib.SequenceMatcher(a=r, b=list(h))
+        e += max(len(r), len(h)) - sum(bl.size for bl in sm.get_matching_blocks())
+        t += len(r)
+    return e / max(t, 1)
+
+
+def dicow_hermetic(dev, steps1=400, steps2=300):
+    """JAX tests/test_dicow_hermetic.py on the port: a small DiCoW (2 x 64,
+    40 mels, 10 tokens + blank) trained on synthetic token speech
+    (data/asr_sim.py). Stage 1, `steps1` adam steps at 2e-3 of unconditioned
+    CTC on single-speaker utterances of two voices; stage 2, `steps2` steps
+    at 5e-4, fresh optimizer, of STNO-conditioned CTC on two-speaker mixtures
+    whose labels are the target's tokens (the FDDT transforms, unused in
+    stage 1, still at their identity init). → (held-out conditioned TER, the
+    same with an all-target mask, seconds)."""
+    import numpy as np
+    import torch
+
+    from speaker_diarization_tpu_torch.data.asr_sim import conditioned_batches, token_batches
+    from speaker_diarization_tpu_torch.models.dicow import DiCoWConfig, DiCoWEncoder, ctc_greedy_decode, ctc_loss
+    from speaker_diarization_tpu_torch.models.whisper_encoder import WhisperEncoderConfig
+    from speaker_diarization_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    V, rate = 10, 16000
+    cfg = DiCoWConfig(whisper=WhisperEncoderConfig(n_mels=40, d_model=64, n_heads=2, n_layers=2, d_ff=128, n_ctx=256),
+                      vocab_size=V + 1)
+    model = DiCoWEncoder(cfg, device=dev, seed=0)
+
+    def t(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def make_loss(conditioned):
+        def loss_fn(m, b, generator, train):
+            lo, _ = m(b["audio"], b["stno"] if conditioned else None)
+            return ctc_loss(lo, torch.zeros(lo.shape[:2], device=lo.device), b["labels"], 1.0 - b["label_mask"]), {}
+
+        return loss_fn
+
+    def trainer(conditioned, lr):
+        return Trainer(model, make_loss(conditioned), TrainerConfig(optimizer="adam", schedule="const",
+                                                                    learning_rate=lr, grad_clip_norm=None))
+
+    it_a = token_batches(V, rate, batch_size=4, utt_s=3.0, speaker_shift=1.0, seed=0)
+    it_b = token_batches(V, rate, batch_size=4, utt_s=3.0, speaker_shift=1.35, seed=1)
+    tr = trainer(False, 2e-3)
+    for _ in range(steps1):
+        a, c = next(it_a), next(it_b)
+        loss1 = tr.train_step(t({k: np.concatenate([a[k], c[k]]) for k in a}))["loss"]
+    itc = conditioned_batches(V, rate, batch_size=8, seed=0)
+    tr = trainer(True, 5e-4)
+    for _ in range(steps2):
+        loss2 = tr.train_step(t(next(itc)))["loss"]
+    held = next(conditioned_batches(V, rate, batch_size=16, seed=777))
+    model.eval()
+
+    def ter_of(stno):
+        with torch.no_grad():
+            logits, _ = model(torch.from_numpy(held["audio"]).to(dev), torch.from_numpy(stno).to(dev))
+        return token_error_rate(ctc_greedy_decode(logits), held["labels"], held["label_mask"])
+
+    stno_all = np.zeros_like(held["stno"])
+    stno_all[:, 1] = 1.0
+    return ter_of(held["stno"]), ter_of(stno_all), float(loss1), float(loss2), time.perf_counter() - t0
+
+
+def dicow_hermetic_phase(dev, smi):
+    """[dicow_hermetic]: the hermetic DiCoW check on the card, held to the
+    JAX test's own bars: conditioned TER < 0.15, the all-target ablation
+    above the conditioned TER + 0.2."""
+    ter, ter_all, loss1, loss2, secs = dicow_hermetic(dev)
+    phase("dicow_hermetic", f"stage 1: 400 unconditioned steps (last loss {loss1:.4f}); stage 2: 300 conditioned "
+          f"steps (last loss {loss2:.4f}); held-out conditioned TER {ter:.4f} (bar < 0.15), all-target TER "
+          f"{ter_all:.4f} (bar > {ter + 0.2:.4f}); {secs:.1f} s | {smi}")
+    if not (ter < 0.15 and ter_all > ter + 0.2):
+        raise AssertionError(f"hermetic DiCoW: conditioned TER {ter}, all-target TER {ter_all}")
 
 
 def zoo_cli_chain():
@@ -2481,10 +2835,15 @@ def main() -> int:
     # every stage through the CLI at full width, on a small corpus)
     cli_sites = recipe_chain()
 
+    # ---- the parallel layer at world size 1, DiCoW at DiCoW v3's widths, the hermetic DiCoW check
+    parallel_sites = parallel_phase(dev, smi, reset_counts, want)
+    dicow_phase(dev, smi)
+    dicow_hermetic_phase(dev, smi)
+
     # where each kernel launched, per path driven above (counts of one forward
     # or step; of a whole run for the CLI verbs of recipe_chain)
     sites = {"tsvad": launches, "tsvad_mamba": mlaunches, "tsvad_mamba_train_step": tlaunches, **eend_launches,
-             **slice_launches, **zoo_launches, **cli_sites}
+             **slice_launches, **zoo_launches, **cli_sites, **parallel_sites}
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (

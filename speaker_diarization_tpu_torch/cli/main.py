@@ -135,7 +135,7 @@ _PARAMS_HELP = (
 @dataclasses.dataclass
 class TrainCliConfig:
     """The fields of the JAX CLI's TrainCliConfig, same names, defaults and
-    order, but n_data (the mesh's, not ported)."""
+    order."""
 
     family: str = "eend"  # one of FAMILIES
     # model
@@ -208,6 +208,7 @@ class TrainCliConfig:
     # loop
     log_every: int = 50
     valid_every: int = 500
+    n_data: int = 0  # data-parallel ranks of a torchrun launch; 0 = all of them
 
 
 def _blocks(cfg: TrainCliConfig, default: tuple = (12, 24, 16)) -> tuple:
@@ -654,7 +655,30 @@ def _ssnd_data(args, cfg: TrainCliConfig):
     return cfg, loss_fn, lambda ep: batches(cfg.batch_size), None, (mixer.n_all_speakers, 0)
 
 
+def _fit_batch_to_mesh(cfg: TrainCliConfig, mesh):
+    """The batch must split evenly over the mesh's data axis: round it down,
+    or drop the mesh (every rank then trains the whole batch) when it is
+    smaller than the axis (JAX `cli/main.py:349-367`)."""
+    if mesh is None:
+        return cfg, mesh
+    n_data = mesh.n_data
+    if cfg.batch_size < n_data:
+        logging.warning("batch_size %d < data-parallel size %d; running unsharded", cfg.batch_size, n_data)
+        return cfg, None
+    if cfg.batch_size % n_data:
+        nb = (cfg.batch_size // n_data) * n_data
+        logging.warning("rounding batch_size %d -> %d (multiple of %d shards)", cfg.batch_size, nb, n_data)
+        cfg = dataclasses.replace(cfg, batch_size=nb)
+    return cfg, mesh
+
+
 def cmd_train(args) -> int:
+    """Train one family. Launched by `torchrun --nproc_per_node N` (WORLD_SIZE
+    > 1), every rank joins the process group (NCCL on the GPUs, gloo with
+    --device cpu) and trains data-parallel on a mesh of `n_data` ranks
+    (0: all), each keeping its rows of the same global batches; rank 0
+    alone writes."""
+    from ..parallel.mesh import init_distributed, is_main_process, make_mesh, replicate
     from ..train.checkpoints import CheckpointManager
     from ..train.loop import run_training
     from ..train.trainer import Trainer, TrainerConfig
@@ -662,7 +686,15 @@ def cmd_train(args) -> int:
     from ..utils.device import resolve_device
 
     cfg = _cli_config(args, load_json(TrainCliConfig, args.config) if args.config else TrainCliConfig())
-    dev = resolve_device(args.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dev = init_distributed(args.device)
+        mesh = make_mesh(n_data=cfg.n_data or None)
+        if not is_main_process():
+            logging.getLogger().setLevel(logging.WARNING)
+        cfg, mesh = _fit_batch_to_mesh(cfg, mesh)
+    else:
+        dev = resolve_device(args.device)
     if cfg.family in TSVAD_FAMILIES:
         model = build_model(cfg, dev)
         loss_fn, make_train, make_valid, sizes = _tsvad_data(args, cfg, model)
@@ -675,10 +707,13 @@ def cmd_train(args) -> int:
         warmup_steps=cfg.warmup_steps, total_steps=cfg.num_steps, grad_clip_norm=cfg.grad_clip_norm,
         grad_accum_steps=cfg.grad_accum_steps, model_avg_decay=cfg.model_avg_decay or None, seed=cfg.seed,
     )
-    trainer = Trainer(model, loss_fn, tcfg)
+    if mesh is not None:
+        replicate(model, mesh)
+    trainer = Trainer(model, loss_fn, tcfg, mesh=mesh)
     mgr = CheckpointManager(args.exp_dir, max_to_keep=args.max_to_keep)
-    with open(os.path.join(args.exp_dir, TRAIN_CONFIG), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    if is_main_process():
+        with open(os.path.join(args.exp_dir, TRAIN_CONFIG), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=1)
     if args.resume and mgr.latest_step() is not None:
         trainer.load_state_dict(mgr.restore())
         logging.info("resumed from step %d", trainer.step)
@@ -694,13 +729,18 @@ def cmd_train(args) -> int:
         metrics_path=os.path.join(args.exp_dir, "metrics.jsonl"),
         profile_dir=args.profile_dir,
     )
-    if cfg.family == "tsvad":  # for `infer --params`, and the JAX package's TSVADModel
+    if cfg.family == "tsvad" and is_main_process():  # for `infer --params`, and the JAX package's TSVADModel
         from ..utils.convert import save_flax_npz, tsvad_to_flax
 
         save_flax_npz(os.path.join(args.exp_dir, FLAX_PARAMS), tsvad_to_flax(model.state_dict(), cfg.n_heads))
         with open(os.path.join(args.exp_dir, FLAX_CONFIG), "w") as f:
             json.dump(dataclasses.asdict(model.cfg), f, indent=1)
     logging.info("training done at step %d; checkpoints in %s", trainer.step, args.exp_dir)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 

@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as Fn
 
 from ..ops import losses as L
+from ..parallel.collectives import batch_mean
 from ..ops.hungarian import dice_loss, hungarian_assign
 from ..utils.device import resolve_dtype
 from .conformer import ConformerEncoder
@@ -248,16 +249,15 @@ def _level_loss(mask_logits, class_logits, labels, assign, cfg: M2FConfig, frame
     matched = torch.where(real[..., None], onehot, torch.zeros_like(onehot))
     is_obj = matched.amax(1)  # (B, Q)
     w = is_obj + cfg.no_object_weight * (1 - is_obj)
-    class_loss = (L.bce_with_logits(class_logits, is_obj) * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    class_loss = batch_mean((L.bce_with_logits(class_logits, is_obj) * w).sum(), w.sum())
     pred = torch.einsum("bsq,bqt->bst", matched, mask_logits)
     mce = L.bce_with_logits(pred, labels)
     if frame_mask is not None:
         mce = mce * frame_mask[:, None, :]
     realf = real.to(mask_logits.dtype)
-    n_real = torch.clamp_min(realf.sum(), 1.0)
-    mask_loss = (mce * realf[..., None]).sum() / (n_real * T)
+    mask_loss = batch_mean((mce * realf[..., None]).sum() / T, realf.sum())
     d = dice_loss(torch.where(real[..., None], pred, torch.full_like(pred, -1e9)), labels)
-    dice = (d * realf).sum() / n_real
+    dice = batch_mean((d * realf).sum(), realf.sum())
     total = cfg.class_weight * class_loss + cfg.mask_weight * mask_loss + cfg.dice_weight * dice
     return total, (class_loss, mask_loss, dice)
 

@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import losses as L
+from ..parallel.collectives import batch_mean
 from ..utils.device import resolve_dtype
 from .eend import FrontendConfig, frontend_features, materialize_
 from .layers import Conv1d, Linear, dropout as drop
@@ -148,4 +149,4 @@ def consistency_loss(emb: torch.Tensor, channel_labels: torch.Tensor, frame_mask
     if frame_mask is None:
         return e.mean()
     m = frame_mask[:, :, None] * frame_mask[:, None, :]
-    return (e * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return batch_mean((e * m).sum(), m.sum())

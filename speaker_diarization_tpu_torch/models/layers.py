@@ -17,6 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as Fn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import data_axis
+
 
 def _cast(t, dtype):
     return None if t is None else t.to(dtype)
@@ -44,6 +46,12 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     the biased E[x²] − E[x]² (clipped at 0), and the running statistics move
     by `momentum` = 0.1 towards the batch mean and that same biased variance
     (flax momentum 0.9).
+
+    Inside a data-parallel step (`parallel.collectives.data_parallel`) train
+    mode is synced: the mean and E[x²] are averaged over the data group,
+    differentiably (in the fixed rank order under `deterministic_reduce`),
+    so they are the global batch's, as under JAX's GSPMD. The shards are the
+    same size (`shard_batch` of a batch that divides by the data size).
     """
 
     def _check_input_dim(self, x):
@@ -57,8 +65,11 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             return y.to(x.dtype)
         dims = [0, *range(2, x.dim())]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        mean, sq = xf.mean(dims), (xf * xf).mean(dims)
+        comm = data_axis()
+        if comm is not None:
+            mean, sq = comm.mean_grad(torch.stack([mean, sq])).unbind(0)
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

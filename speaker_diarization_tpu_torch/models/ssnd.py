@@ -36,6 +36,7 @@ import torch.nn as nn
 from ..ops import features as F
 from ..ops import losses as L
 from ..ops import metrics as M
+from ..parallel.collectives import batch_mean
 from ..utils.device import resolve_dtype
 from .campplus import CAMPPlus
 from .conformer import ConformerEncoder
@@ -224,7 +225,7 @@ def ssnd_loss(model: SSNDModel, audio, aux, labels, gids, generator=None, arcfac
     n_all, smooth = logits_arc.shape[-1], 0.05
     target = nn.functional.one_hot(flat_gid, n_all).float() * (1 - smooth) + smooth / n_all
     n_valid = torch.clamp_min(valid.sum(), 1.0)
-    arc = (-(target * logp).sum(-1) * valid).sum() / n_valid
+    arc = batch_mean(-((target * logp).sum(-1) * valid).sum(), valid.sum())
     arc = arc + 0.001 * torch.linalg.vector_norm(flat_emb, dim=-1).mean()
     acc = ((logits_arc.argmax(-1) == flat_gid).float() * valid).sum() / n_valid
     stats = M.diarization_error_stats(vad.transpose(1, 2), labels.transpose(1, 2))

@@ -17,6 +17,14 @@ flax numerics:
 - a boolean attention mask (True = attend) fills masked scores with the
   dtype's most negative finite value, as flax does, not -inf: a query row
   with no valid key (a padded frame) gets a uniform softmax, never NaN.
+
+`MultiHeadAttention` and `FeedForward` have a tensor-parallel mode, set by
+`parallel.mesh.shard_params` (`tp`, the model group): q, k and v hold this
+rank's heads (column-parallel) and `out` the matching input columns
+(row-parallel); the FFN's first Linear holds a slice of d_ff and the second
+the matching columns. The input enters through `copy_to_model` and the
+row-parallel product leaves through `reduce_from_model` (Megatron's pair),
+and the row-parallel bias is added once, after the sum.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
 
+from ..parallel.collectives import copy_to_model, reduce_from_model
 from .layers import Linear, dropout as drop, remat as _remat
 
 LN_EPS = 1e-6
@@ -51,10 +60,20 @@ class LayerNorm(nn.LayerNorm):
         return Fn.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
 
 
+def _row_parallel(x, linear: Linear, tp):
+    """`linear(x)` whose input columns are split over the model group: the
+    partial products summed over the group, then the bias."""
+    y = reduce_from_model(Fn.linear(x, linear.weight.to(x.dtype)), tp)
+    return y if linear.bias is None else y + linear.bias.to(x.dtype)
+
+
 class MultiHeadAttention(nn.Module):
+    tp = None  # the model group when its heads are sharded (parallel.mesh.shard_params)
+
     def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.head_dim = d_model // n_heads
         self.dropout = dropout
         self.query = Linear(d_model, d_model)
         self.key = Linear(d_model, d_model)
@@ -69,22 +88,28 @@ class MultiHeadAttention(nn.Module):
         """flax `MultiHeadDotProductAttention(x_q, x_k, x_v)`: queries (B, Tq, D)
         over keys (B, Tk, D) and values (B, Tk, D); `mask` (B|1, 1|H, Tq, Tk)
         bool, True = attend."""
-        B, Tq, D = x_q.shape
-        Tk, H = x_k.shape[1], self.n_heads
-        q = self.query(x_q).view(B, Tq, H, D // H).transpose(1, 2)
-        k = self.key(x_k).view(B, Tk, H, D // H).transpose(1, 2)
-        v = self.value(x_v).view(B, Tk, H, D // H).transpose(1, 2)
-        q = q / torch.tensor(math.sqrt(D // H), dtype=x_q.dtype)
+        B, Tq, _ = x_q.shape
+        Tk, hd = x_k.shape[1], self.head_dim
+        if self.tp is not None:  # this rank's heads
+            x_q, x_k, x_v = (copy_to_model(t, self.tp) for t in (x_q, x_k, x_v))
+        q = self.query(x_q)
+        H = q.shape[-1] // hd
+        q = q.view(B, Tq, H, hd).transpose(1, 2)
+        k = self.key(x_k).view(B, Tk, H, hd).transpose(1, 2)
+        v = self.value(x_v).view(B, Tk, H, hd).transpose(1, 2)
+        q = q / torch.tensor(math.sqrt(hd), dtype=x_q.dtype)
         s = torch.matmul(q, k.transpose(-1, -2))  # (B, H, Tq, Tk)
         if mask is not None:
             s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
         w = torch.softmax(s, dim=-1)
         w = drop(w, self.dropout, self.training, generator)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(B, Tq, D)
-        return self.out(o)
+        o = torch.matmul(w, v).transpose(1, 2).reshape(B, Tq, H * hd)
+        return self.out(o) if self.tp is None else _row_parallel(o, self.out, self.tp)
 
 
 class FeedForward(nn.Module):
+    tp = None  # the model group when d_ff is sharded (parallel.mesh.shard_params)
+
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.dense0 = Linear(d_model, d_ff)
@@ -92,7 +117,10 @@ class FeedForward(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, generator=None):
-        return self.dense1(drop(torch.relu(self.dense0(x)), self.dropout, self.training, generator))
+        if self.tp is None:
+            return self.dense1(drop(torch.relu(self.dense0(x)), self.dropout, self.training, generator))
+        h = drop(torch.relu(self.dense0(copy_to_model(x, self.tp))), self.dropout, self.training, generator)
+        return _row_parallel(h, self.dense1, self.tp)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -6,6 +6,10 @@ Counterpart of speaker_diarization_tpu/ops/losses.py: `bce_with_logits`,
 family's permutation-invariant BCE (`pit_loss` over a table of all C!
 permutations, reference eend/loss.py:20-67) and EDA attractor existence
 loss (reference eend_eda/models.py:654-692).
+
+The masked means divide by counts over the whole batch through
+`parallel.collectives.batch_mean`, which sums the count over the data group
+inside a data-parallel step, so the step's loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import batch_mean
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -46,7 +52,7 @@ def standard_bce(
         m = m * frame_mask[..., None]
     if spk_mask is not None:
         m = m * spk_mask[..., None, :]
-    return (e * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return batch_mean((e * m).sum(), m.sum())
 
 
 @functools.lru_cache(maxsize=16)
@@ -92,7 +98,7 @@ def pit_loss(
     best_perm = perms[best]  # (B, C)
     labels_perm = torch.gather(labels, 2, best_perm[:, None, :].expand(B, T, C))
     n_frames = frame_mask.sum() if frame_mask is not None else torch.tensor(float(B * T), device=logits.device)
-    loss = (min_cost / C).sum() / torch.clamp_min(n_frames, 1.0)
+    loss = batch_mean((min_cost / C).sum(), n_frames)
     return loss, labels_perm, best_perm.int()
 
 
@@ -106,4 +112,4 @@ def attractor_existence_loss(exist_logits: torch.Tensor, spk_mask: torch.Tensor)
     target = (pos < n).to(exist_logits.dtype)
     valid = (pos <= n).to(exist_logits.dtype)
     e = bce_with_logits(exist_logits, target) * valid
-    return e.sum() / torch.clamp_min(valid.sum(), 1.0)
+    return batch_mean(e.sum(), valid.sum())

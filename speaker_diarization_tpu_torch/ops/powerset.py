@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.collectives import batch_mean
+
 from . import losses as L
 
 
@@ -94,5 +96,5 @@ def _powerset_ce(logits, target_idx, frame_mask=None, label_smoothing: float = 0
         onehot = onehot * (1 - label_smoothing) + label_smoothing / n_classes
     ce = -(onehot * logp).sum(-1)  # (B, T)
     if frame_mask is not None:
-        return (ce * frame_mask).sum() / torch.clamp_min(frame_mask.sum(), 1.0)
+        return batch_mean((ce * frame_mask).sum(), frame_mask.sum())
     return ce.mean()

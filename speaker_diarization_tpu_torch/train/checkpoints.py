@@ -17,6 +17,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..parallel.mesh import is_main_process
+
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5, best_k: int = 3, metric_mode: str = "min"):
@@ -33,8 +35,10 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step:010d}.pt")
 
     def save(self, trainer, metric: Optional[float] = None) -> str:
+        """Write the trainer's state (rank 0 of a process group only: the
+        ranks hold the same replicated state)."""
         path = self._path(trainer.step)
-        if os.path.exists(path):
+        if os.path.exists(path) or not is_main_process():
             return path
         tmp = path + ".tmp"
         torch.save(trainer.state_dict(), tmp)

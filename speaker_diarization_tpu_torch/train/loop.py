@@ -13,6 +13,10 @@ fields and `metrics.jsonl` records:
 Losses stay on the device between log boundaries, so steps are not
 serialised by host reads. `profile_dir` records a torch.profiler trace of
 steps [profile_start, profile_start + profile_steps) as a Chrome trace.
+
+In a process group every rank runs the loop on the same batches (the
+Trainer keeps its rows of each), and rank 0 alone writes `metrics.jsonl`,
+the checkpoints and the trace.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import is_main_process
 from .checkpoints import CheckpointManager
 from .trainer import Trainer
 
@@ -100,7 +105,10 @@ def run_training(
     `early_stop_patience` validations without improvement."""
     save_every = save_every or valid_every
     dev = trainer.device
-    mf = open(metrics_path, "a") if metrics_path else None
+    main = is_main_process()
+    mf = open(metrics_path, "a") if metrics_path and main else None
+    if not main:
+        profile_dir = None
     epoch, t0, window = 0, time.time(), []
     best_vloss, bad_validations, stop = float("inf"), 0, False
     probe_next, device_probe_ms = True, None

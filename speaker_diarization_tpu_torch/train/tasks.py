@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import batch_mean
+
 from ..ops import features as F
 from ..ops import losses as L
 from ..ops import metrics as M
@@ -167,7 +169,7 @@ def make_eend_vc_loss(spk_loss_weight: float = 0.03):
         valid = ((labels_perm.sum(1) > 0) & (gids >= 0)).float()
         logp = torch.log_softmax(model.spk_distance_logits(vecs), dim=-1)
         picked = logp.gather(-1, torch.clamp_min(gids, 0)[..., None])[..., 0]
-        spk = -(picked * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+        spk = batch_mean(-(picked * valid).sum(), valid.sum())
         stats = M.diarization_error_stats(logits, labels_perm, fm)
         total = (1.0 - spk_loss_weight) * pit + spk_loss_weight * spk
         return total, {"pit_loss": pit.detach(), "spk_loss": spk.detach(), "frame_der": M.der_from_stats(stats)}
@@ -287,6 +289,6 @@ def make_vad_loss():
         denom = torch.clamp_min(mask.sum(), 1.0)
         bce = torch.nn.functional.binary_cross_entropy_with_logits(logits, speech, reduction="none")
         acc = (((logits > 0) == (speech > 0.5)).float() * mask).sum() / denom
-        return (bce * mask).sum() / denom, {"vad_acc": acc.detach()}
+        return batch_mean((bce * mask).sum(), mask.sum()), {"vad_acc": acc.detach()}
 
     return loss_fn

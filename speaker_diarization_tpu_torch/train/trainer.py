@@ -20,8 +20,27 @@ frameworks up to rounding:
   gradients is applied on every k-th step; the steps between change nothing;
 - Polyak `model_avg_decay`: avg ← avg·d + p·(1 − d) after every step.
 Dropout masks come from `self.generator`, a torch.Generator on the model's
-device seeded with `seed`. Data-parallel meshes (and `deterministic_reduce`)
-wait for ROADMAP item 13.
+device seeded with `seed` (plus the data rank on a mesh).
+
+With a mesh (`parallel.mesh.make_mesh`), `train_step` and `eval_step` take
+the global batch and each data rank keeps its rows (`shard_batch`). The
+model is not wrapped in DistributedDataParallel: the gradients come from
+`torch.autograd.grad`, which DDP's hooks never see. They are reduced
+explicitly over the data group, the data mean of every rank's gradients:
+by default one flattened `all_reduce(SUM)` / n (JAX's psum); with
+`deterministic_reduce` an `all_gather` and a sum over ranks 0..n−1 in that
+order, then / n (JAX `trainer.py:246-280`), so the result does not depend
+on how the ranks are laid out. The loss and the aux values are reduced the
+same way (the data mean). The step runs inside `data_parallel`, so
+train-mode BatchNorm takes the global batch's statistics and the masked
+losses divide by the global batch's counts, as JAX's GSPMD step does. The
+global norm, clipping, AutoClip and `skip_nonfinite` act on the reduced
+gradients; where `parallel.mesh.shard_params` has split a parameter over
+the model group, its squared norm is summed over that group and a
+replicated one counts once. Unlike JAX, which draws one dropout mask for
+the global batch, each data rank draws its own from its own generator
+(seed + data rank), so a mesh run with dropout is not the single-device
+run; the parity tests run at dropout 0.
 """
 
 from __future__ import annotations
@@ -31,6 +50,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..parallel.collectives import data_parallel
+from ..parallel.mesh import Mesh, shard_batch
 from .schedules import noam_schedule, polynomial_decay_schedule
 
 
@@ -51,6 +72,9 @@ class TrainerConfig:
     grad_accum_steps: int = 1
     model_avg_decay: Optional[float] = None  # e.g. 0.999; None disables
     seed: int = 0
+    # reduce over the data group by all_gather and a fixed-order sum (JAX's
+    # topology-independent reduction) instead of all_reduce
+    deterministic_reduce: bool = False
 
 
 def build_schedule(cfg: TrainerConfig) -> Callable[[int], float]:
@@ -88,15 +112,23 @@ class Trainer:
     the step counters, the dropout generator, the gradient accumulators and
     the averaged weights."""
 
-    def __init__(self, model: torch.nn.Module, loss_fn: Callable, cfg: TrainerConfig):
-        self.model, self.loss_fn, self.cfg = model, loss_fn, cfg
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, cfg: TrainerConfig, mesh: Optional[Mesh] = None):
+        self.model, self.loss_fn, self.cfg, self.mesh = model, loss_fn, cfg, mesh
         self.device = next(model.parameters()).device
         self.named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in self.named]
+        self.data = None
+        if mesh is not None:
+            if not mesh.is_member:
+                raise ValueError(f"rank {mesh.rank} is outside the {mesh.n_data} x {mesh.n_model} mesh")
+            self.data = mesh.data.with_order(cfg.deterministic_reduce)
+        sharded = getattr(model, "tp_sharded", frozenset())
+        self.sharded = [n in sharded for n, _ in self.named]
         self.opt, self.schedule = build_optimizer(cfg, self.params)
         self.step = 0  # train_step calls (JAX TrainState.step)
         self.n_updates = 0  # optimizer updates (optax's inner count)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        seed = cfg.seed + (mesh.data_rank if mesh is not None else 0)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.avg_params = None
         if cfg.model_avg_decay is not None:
             self.avg_params = {n: p.detach().clone() for n, p in self.named}
@@ -106,11 +138,20 @@ class Trainer:
         self.clip_count = 0
 
     # ------------------------------------------------------------------
+    def _norm(self, grads) -> torch.Tensor:
+        """The global norm of `grads`; the squares of parameters sharded over
+        the model group are summed over it."""
+        if not any(self.sharded):
+            return global_norm(grads)
+        own = sum(torch.sum(g.float() * g.float()) for g, s in zip(grads, self.sharded) if s)
+        rest = sum(torch.sum(g.float() * g.float()) for g, s in zip(grads, self.sharded) if not s)
+        return torch.sqrt(self.mesh.model.sum(own) + rest)
+
     def _clip(self, grads) -> None:
         """Scale `grads` in place as the optax clip transformation would."""
         cfg = self.cfg
         if cfg.auto_clip_percentile is not None:
-            gnorm = global_norm(grads)
+            gnorm = self._norm(grads)
             H = cfg.grad_history_size
             self.clip_history[self.clip_count % H] = gnorm
             n = min(self.clip_count + 1, H)
@@ -123,7 +164,7 @@ class Trainer:
             clip = srt[i0] * (1.0 - w) + srt[i1] * w
             scale = torch.clamp_max(clip / torch.clamp_min(gnorm, 1e-12), 1.0)
         elif cfg.grad_clip_norm is not None:
-            gnorm = global_norm(grads)
+            gnorm = self._norm(grads)
             scale = torch.where(gnorm < cfg.grad_clip_norm, torch.ones_like(gnorm), cfg.grad_clip_norm / gnorm)
         else:
             return
@@ -132,7 +173,7 @@ class Trainer:
 
     def _apply(self, grads) -> None:
         """One optimizer update with `grads` (already accumulated)."""
-        if self.cfg.skip_nonfinite and not all(bool(torch.isfinite(g).all()) for g in grads):
+        if self.cfg.skip_nonfinite and not self._finite(grads):
             return  # optax.apply_if_finite: weights and optimizer state unchanged
         self._clip(grads)
         for p, g in zip(self.params, grads):
@@ -143,18 +184,39 @@ class Trainer:
         self.opt.step()
         self.n_updates += 1
 
+    def _finite(self, grads) -> bool:
+        ok = torch.stack([torch.isfinite(g).all() for g in grads]).all().float()
+        if any(self.sharded):  # every model rank takes the same decision
+            return bool(self.mesh.model.sum(ok) == self.mesh.n_model)
+        return bool(ok)
+
+    def _reduce_aux(self, loss, aux: dict) -> dict:
+        """The loss and the aux values (detached), as data means on a mesh."""
+        aux = {k: torch.as_tensor(v, device=loss.device).detach() for k, v in aux.items()}
+        aux["loss"] = loss.detach()
+        if self.data is None:
+            return aux
+        keys = list(aux)
+        vals = self.data.mean(torch.stack([aux[k].float().reshape(()) for k in keys]))
+        return dict(zip(keys, vals.unbind(0)))
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Forward, backward and (every grad_accum_steps-th call) one update.
-        Returns aux tensors (loss, grad_norm, lr, task metrics); no host sync."""
+        Returns aux tensors (loss, grad_norm, lr, task metrics); no host sync.
+        On a mesh `batch` is the global batch."""
         self.model.train()
         for p in self.params:
             p.grad = None
-        loss, aux = self.loss_fn(self.model, batch, self.generator, True)
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        with data_parallel(self.data):
+            loss, aux = self.loss_fn(self.model, batch, self.generator, True)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        aux = dict(aux)
-        aux["loss"] = loss.detach()
-        aux["grad_norm"] = global_norm(grads)
+        if self.data is not None:
+            grads = self.data.mean_flat(grads)
+        aux = self._reduce_aux(loss, aux)
+        aux["grad_norm"] = self._norm(grads)
         aux["lr"] = torch.tensor(self.schedule(self.step))
         k = self.cfg.grad_accum_steps
         if k > 1:
@@ -180,11 +242,20 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The eval loss and aux of a batch; on a mesh the global batch, its
+        rows split over the data group (a batch with fewer rows than data
+        ranks is evaluated whole on every rank)."""
         self.model.eval()
-        loss, aux = self.loss_fn(self.model, batch, None, False)
-        aux = dict(aux)
-        aux["loss"] = loss
-        return aux
+        data = self.data if self.mesh is not None and len(next(iter(batch.values()))) >= self.mesh.n_data else None
+        if data is not None:
+            batch = shard_batch(batch, self.mesh)
+        with data_parallel(data):
+            loss, aux = self.loss_fn(self.model, batch, None, False)
+        if data is None:
+            aux = dict(aux)
+            aux["loss"] = loss
+            return aux
+        return self._reduce_aux(loss, aux)
 
     # ------------------------------------------------------------------
     def state_dict(self) -> dict:

@@ -78,6 +78,12 @@ parameters a module holds directly (WavLM's `grep_a` and
 `distance_embedding`, ReDimNet's `inputs_weights_i`; TS-VAD's
 `wavlm_weights`) keep their name and shape.
 
+DiCoW and the Whisper decoder too: `dicow_from_flax` / `dicow_to_flax` (the
+FDDT scales and biases, `<class>_scale` and `<class>_bias`, kept as they
+are; its Linears by name) and `whisper_decoder_from_flax` /
+`whisper_decoder_to_flax` (nn.Embed `embed_tokens/embedding` ↔
+`embed_tokens.weight`).
+
 `conformer`, the speech encoders but CAM++, the TS-VAD
 `conformer` and BiLSTM (`lstm_fwd`/`lstm_bwd` for flax's
 OptimizedLSTMCell_0/_1) backends and the upsampling `speech_down` go
@@ -254,7 +260,8 @@ _TRANSPOSED = ("up", "up2", "up5")
 # parameters a module holds directly (flax `self.param`), kept as they are:
 # WavLM's `grep_a` and `relative_attention_bias`, Whisper's `embed_positions`,
 # w2v-BERT's `distance_embedding`, ReDimNet's `inputs_weights_i`
-_RAW_LEAF = re.compile(r"grep_a|relative_attention_bias|embed_positions|distance_embedding|inputs_weights_\d+")
+_RAW_LEAF = re.compile(r"grep_a|relative_attention_bias|embed_positions|distance_embedding|inputs_weights_\d+"
+                       r"|(silence|target|non_target|overlap)_(scale|bias)")
 # a module's two flax GRUCells under nn.RNN, forward and reversed (the
 # enhancer's, ReDimNet's GRU block): `GRUCell_0|1/{ir,iz,in,hr,hz,hn}` → the
 # GRU Linears of models/enhancer.GRU, `gru_fwd|gru_bwd.{input,hidden,hidden_n}`
@@ -440,6 +447,24 @@ def _speech_encoder_from_flax(params: dict, stats: dict) -> Dict[str, torch.Tens
 # GRU cells included), so their converters are the named ones.
 wavlm_from_flax = whisper_from_flax = w2vbert_from_flax = eres2net_from_flax = redimnet_from_flax = named_from_flax
 wavlm_to_flax = whisper_to_flax = w2vbert_to_flax = eres2net_to_flax = redimnet_to_flax = named_to_flax
+
+
+dicow_from_flax, dicow_to_flax = named_from_flax, named_to_flax
+
+
+def whisper_decoder_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX WhisperDecoder params → state dict: by name, the tied token table
+    (nn.Embed `embedding`) as `embed_tokens.weight`."""
+    rest = {k: v for k, v in params.items() if k != "embed_tokens"}
+    sd = named_from_flax(rest)
+    sd["embed_tokens.weight"] = _t(params["embed_tokens"]["embedding"])
+    return sd
+
+
+def whisper_decoder_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    out = named_to_flax({k: t for k, t in state_dict.items() if k != "embed_tokens.weight"})
+    out["params"]["embed_tokens"] = {"embedding": state_dict["embed_tokens.weight"].detach().cpu().float().numpy()}
+    return out
 
 
 def encoder_from_flax(name: str, params: dict, stats: dict) -> Dict[str, torch.Tensor]:

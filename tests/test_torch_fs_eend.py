@@ -6,7 +6,8 @@ gradients, the weight converters both ways, and a port-only `train` →
 `infer --threshold-sweep` → `score` chain, against the JAX package.
 
 Tolerances: outputs 1e-4·max(1, max|ref|) in fp32; losses 1e-5 relative;
-gradients 1e-4·max|ref grad| of each tensor; labels exact."""
+gradients 1e-4·max|ref grad| of each tensor; labels exact. The bf16 model
+against JAX's bf16 model: the bars of `test_fs_eend_bf16_matches_jax_bf16`."""
 
 import json
 import os
@@ -167,6 +168,66 @@ def test_fs_eend_loss_and_gradients_match_jax(pair):
         np.testing.assert_allclose(aux[k].item(), float(jaux[k]), rtol=1e-5, err_msg=k)
     grads = {n: p.grad for n, p in m2.named_parameters()}
     _grads_close(_flat(convert.fs_eend_to_flax(grads, num_heads=2)["params"]), _flat(jgrads["params"]))
+
+
+BF16_ULP = 2.0**-8  # bf16's spacing at 1
+
+
+@pytest.mark.parametrize("delays", list(DELAYS))
+def test_fs_eend_bf16_matches_jax_bf16(delays):
+    """The port's bf16 FS-EEND against JAX's `dtype=jnp.bfloat16` model on
+    the same fp32 weights: both keep fp32 parameters and LayerNorm
+    statistics and run the Dense layers, the attention softmax and the
+    l2-normalisations in bf16, the loss on fp32 logits. Bars, set from the
+    rounding of bf16: logits within 4 bf16 ulps (4 · 2^-8 · max(1, max|ref|))
+    max-abs and 1 ulp mean-abs (JAX's own bf16 logits stray 2 ulps from its
+    fp32 ones); the loss within 2e-3 relative; the gradients, held to JAX's
+    fp32 gradients, no farther than twice JAX's own bf16 gradients are (the
+    median over the tensors above 1e-3 of the largest of the relative L2
+    error: a bf16 ReLU that flips moves single entries a long way, in
+    either framework)."""
+    kw = dict(TINY, **DELAYS[delays])
+    jm32 = JF.FSEENDModel(**kw, frontend=JFrontend())
+    v = jax.jit(jm32.init)(jax.random.PRNGKey(0), jnp.asarray(_audio()))
+    rng = np.random.default_rng(1)
+    v = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32), v)
+    jm = JF.FSEENDModel(**kw, frontend=JFrontend(), dtype=jnp.bfloat16)
+    m = F.FSEENDModel(**kw, device="cpu", dtype=torch.bfloat16)
+    m.load_state_dict(convert.fs_eend_from_flax(v))
+    audio = _audio(seed=4)
+    fm = np.ones((2, 30), np.float32)
+    fm[1, 17:] = 0.0
+    ref, _ = jax.jit(jm.apply)(v, jnp.asarray(audio), jnp.asarray(fm))
+    with torch.no_grad():
+        got, emb = m(torch.from_numpy(audio), torch.from_numpy(fm))
+    assert got.dtype == emb.dtype == torch.float32
+    ref = np.asarray(ref, np.float32)
+    ulp = BF16_ULP * max(1.0, float(np.abs(ref).max()))
+    err = np.abs(got.numpy() - ref)
+    assert err.max() <= 4 * ulp and err.mean() <= ulp, (err.max(), err.mean())
+    labels, _ = _label_cases()
+    batch = dict(audio=_audio(seed=8), labels=labels[2:], frame_mask=np.ones((2, 30), np.float32))
+    batch["frame_mask"][0, 25:] = 0.0
+    jb = {k: jnp.asarray(a) for k, a in batch.items()}
+    jloss, jgrads = {}, {}
+    for name, model in (("bf16", jm), ("fp32", jm32)):
+        loss_fn = JT.make_fs_eend_loss(model)
+        (jloss[name], _), g = jax.jit(jax.value_and_grad(
+            lambda p: loss_fn(p, jb, jax.random.PRNGKey(0), False), has_aux=True))(v)
+        jgrads[name] = _flat(g["params"])
+    loss, _ = make_fs_eend_loss()(m, {k: torch.from_numpy(a) for k, a in batch.items()}, None, False)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss["bf16"]), rtol=2e-3)
+    got_g = _flat(convert.fs_eend_to_flax({n: p.grad for n, p in m.named_parameters()}, num_heads=2)["params"])
+    ref = jgrads["fp32"]
+    top = max(np.abs(w).max() for w in ref.values())
+    keys = [k for k, w in ref.items() if np.abs(w).max() > 1e-3 * top]
+    assert len(keys) > len(ref) // 2
+
+    def rel(g):
+        return np.median([np.linalg.norm(g[k] - ref[k]) / np.linalg.norm(ref[k]) for k in keys])
+
+    assert rel(got_g) < 2 * rel(jgrads["bf16"]), (rel(got_g), rel(jgrads["bf16"]))
 
 
 def test_cli_train_infer_score(tmp_path, capsys):

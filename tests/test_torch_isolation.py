@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no JAX package, no scikit-learn, umap,
-hdbscan or msgpack (the GPU hosts have none), no silent CPU fallback. Every
-module of the port is imported, and the TS-VAD speech-encoder zoo and the
-flax msgpack decoder run, with those packages blocked."""
+hdbscan or msgpack (the GPU hosts have none), no silent CPU fallback and no
+gloo on a GPU. Every module of the port is imported, and the TS-VAD
+speech-encoder zoo, the flax msgpack decoder, DiCoW and the Whisper decoder,
+and ring attention on a one-rank gloo group run, with those packages
+blocked."""
 
 import ast
 import os
@@ -124,6 +126,32 @@ with torch.no_grad():
     assert y.shape == (2, 8000) and torch.isfinite(y).all()
     lab = spectral_cluster(np.concatenate([rng.standard_normal(8) + 5 * np.eye(8)[i % 2] for i in range(12)]).reshape(12, 8))
     assert len(set(lab.tolist())) >= 1
+from speaker_diarization_tpu_torch.models.dicow import DiCoWConfig, DiCoWEncoder, ctc_loss
+from speaker_diarization_tpu_torch.models.whisper_decoder import WhisperDecoder, WhisperDecoderConfig, greedy_decode
+from speaker_diarization_tpu_torch.models.whisper_encoder import WhisperEncoderConfig
+d = DiCoWEncoder(DiCoWConfig(whisper=WhisperEncoderConfig(n_mels=16, n_ctx=64, d_model=16, n_heads=2, n_layers=1,
+                                                          d_ff=16), vocab_size=6), device="cpu")
+stno = torch.zeros(2, 4, 50)
+stno[:, 1] = 1
+lo, h = d(a16, stno)
+assert lo.shape == (2, 50, 6) and torch.isfinite(ctc_loss(lo, torch.zeros(2, 50), torch.ones(2, 3).long(),
+                                                          torch.zeros(2, 3)))
+dec = WhisperDecoder(WhisperDecoderConfig(vocab_size=8, d_model=16, n_heads=2, n_layers=1, d_ff=16, max_positions=8),
+                     device="cpu")
+assert greedy_decode(dec, h.detach(), np.ones((2, 1), np.int32), 3, eos_id=2).shape[0] == 2
+import socket
+import torch.distributed as dist
+from speaker_diarization_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from speaker_diarization_tpu_torch.parallel.ring_attention import ring_self_attention
+from speaker_diarization_tpu_torch.utils.profiling import StepTimer
+with socket.socket() as sk:
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+init_distributed("cpu", init_method=f"tcp://127.0.0.1:{{port}}")
+q = torch.randn(1, 8, 2, 4)
+assert ring_self_attention(q, q, q, make_mesh()).shape == q.shape
+dist.destroy_process_group()
+StepTimer().start()
 assert not any(k.split(".")[0] in {sorted(FORBIDDEN)!r} and sys.modules[k] is not None for k in sys.modules)
 print("ok")
 """
@@ -144,6 +172,26 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli(["infer", "--data-dir", str(tmp_path), "--emb-store", "x.npz", "--params", "p.npz", "--out", "o"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_asr_and_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """DiCoW, the Whisper decoder and the process group default to the GPU:
+    without one they raise, and `init_distributed` never falls back to gloo."""
+    from speaker_diarization_tpu_torch.models.dicow import DiCoWConfig, DiCoWEncoder
+    from speaker_diarization_tpu_torch.models.whisper_decoder import WhisperDecoder, WhisperDecoderConfig
+    from speaker_diarization_tpu_torch.models.whisper_encoder import WhisperEncoderConfig
+    from speaker_diarization_tpu_torch.parallel.mesh import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = WhisperEncoderConfig(n_mels=8, n_ctx=8, d_model=8, n_heads=2, n_layers=1, d_ff=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DiCoWEncoder(DiCoWConfig(whisper=tiny))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WhisperDecoder(WhisperDecoderConfig(vocab_size=8, d_model=8, n_heads=2, n_layers=1, d_ff=8))
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_distributed(dev)
+    assert not torch.distributed.is_initialized()
 
 
 def test_kernel_modules_import_and_build_raises_without_nvcc(monkeypatch):
