@@ -134,11 +134,17 @@ the same corpus, each stage's output checked. Last:
   32 tokens; no kernel;
 - [dicow_hermetic] JAX's tests/test_dicow_hermetic.py on the card: 400
   unconditioned and 300 conditioned steps, the held-out conditioned TER
-  below 0.15 and the all-target ablation's above it + 0.2.
+  below 0.15 and the all-target ablation's above it + 0.2;
+- [orbax] a TS-VAD run of the JAX trainer (the committed Orbax directory
+  tests/fixtures/torch_orbax_tsvad: a GPU host without JAX cannot write one) read
+  without orbax or tensorstore and restored through the CLI's
+  `_model_from_exp_dir`: its decode time and rate, then the fp32 and bf16
+  eval forwards through K1, K2 (x3) and K4 against the JAX forward's logits
+  and against the plain twins.
 Each phase prints one line, with the
-seconds since the start, and raises on failure. The CLI verbs of the main
-path run as `python -m speaker_diarization_tpu_torch.cli` processes; those
-of the recipe chain call the same entry point in this process. The
+seconds since the start, and raises on failure. The main path's first
+`infer` and `score` run as `python -m speaker_diarization_tpu_torch.cli`
+processes; the other CLI verbs call the same entry point in this process. The
 last lines are the kernels' JSON record (each kernel's launch sites: counts
 of one forward or step, and of a whole run for the CLI verbs of the recipe
 chain), the card's name and power limit, and {"ok": true, "device": ...}.
@@ -695,8 +701,8 @@ def cli(*args):
     """Run one verb of the port's CLI through its entry point,
     `speaker_diarization_tpu_torch.cli.main.main`, in this process; its
     stdout, or raise with it. The recipe chain runs ~50 verbs, and a process
-    of its own would take each ~8 s to reach the card (the verbs the main
-    path runs first go through `python -m` in processes of their own)."""
+    of its own would take each ~8 s to reach the card (the main path's first
+    `infer` and `score` go through `python -m` in processes of their own)."""
     import contextlib
     import gc
     import io
@@ -1194,6 +1200,83 @@ def zoo_phase(dev, smi, plain_forward, want, reset_counts, fixed_batch_steps):
         torch.cuda.empty_cache()
     phase("zoo", f"{len(zoo_types)} speech encoders in {time.perf_counter() - t_zoo:.1f} s")
     return zoo_launches
+
+
+def orbax_phase(dev, smi, plain_forward, want, reset_counts):
+    """[orbax]: a TS-VAD run of the JAX trainer, its Orbax directory
+    (tests/fixtures/torch_orbax_tsvad, written by the JAX package's
+    CheckpointManager on the CPU: a GPU host without JAX cannot) read by
+    utils/orbax.py and restored through the CLI's `_model_from_exp_dir` on
+    the card (the config from the fixture's --set list, as the JAX CLI
+    rebuilds it). The eval forward on the fixture's input through K1, K2 (x3)
+    and K4: fp32 within 1e-3 x max(1, max|ref|) of the JAX forward's logits
+    (computed on the CPU) and of the plain twins; bf16 within 5e-2 mean-abs
+    of both. → the launches of the two forwards."""
+    import numpy as np
+    import torch
+
+    from speaker_diarization_tpu_torch.cli.main import _model_from_exp_dir, build_parser
+    from speaker_diarization_tpu_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    fixture = os.path.join(REPO, "tests", "fixtures", "torch_orbax_tsvad")
+    step_dir = os.path.join(fixture, "step_0000000001")
+    with open(os.path.join(fixture, "sets.json")) as f:
+        sets = [a for kv in json.load(f) for a in ("--set", kv)]
+    mgr = CheckpointManager(fixture)
+    t0 = time.perf_counter()
+    state = mgr.restore(1, select=("params", "mutable"))
+    decode_s = time.perf_counter() - t0
+    arrays = []
+    stack = [state]
+    while stack:
+        node = stack.pop()
+        for v in (node.values() if isinstance(node, dict) else node):
+            (stack.append(v) if isinstance(v, (dict, list)) else arrays.append(v))
+    n_bytes = sum(np.asarray(a).nbytes for a in arrays)
+    on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(step_dir) for f in fs)
+    phase("orbax", f"decode of the JAX Orbax step (params and batch_stats: {len(arrays)} arrays, "
+          f"{n_bytes / 1e6:.3f} MB from {on_disk / 1e6:.3f} MB on disk, zstd through ctypes): "
+          f"{decode_s * 1e3:.1f} ms, {n_bytes / 1e6 / decode_s:.1f} MB/s | {smi}")
+    with np.load(os.path.join(fixture, "jax_logits.npz")) as z:
+        audio = torch.from_numpy(z["pcm"].astype(np.float32) / 32768.0).to(dev)
+        embs, n_label = torch.from_numpy(z["embs"]).to(dev), int(z["n_label"])
+        ref = torch.from_numpy(z["logits"]).to(dev)
+    sites = {}
+    for dtype in ("fp32", "bf16"):
+        args = build_parser().parse_args(["infer", "--family", "tsvad", "--exp-dir", fixture, "--data-dir", "-",
+                                          "--out", "-", *sets] + (["--bf16"] if dtype == "bf16" else []))
+        t0 = time.perf_counter()
+        model, _ = _model_from_exp_dir(args, dev)
+        restore_s = time.perf_counter() - t0
+        model.eval()
+        with torch.no_grad():
+            model(audio, embs, n_label)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            got = model(audio, embs, n_label).float()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            twin = plain_forward(model, audio, embs, n_label).float()
+        line = f"TS-VAD {dtype} from the JAX run (restore {restore_s:.2f} s) {tuple(audio.shape)} -> {tuple(got.shape)}; " \
+               f"launches {launches}; "
+        if dtype == "fp32":
+            e_ref, e_twin = (got - ref).abs().max().item(), (got - twin).abs().max().item()
+            bar = 1e-3 * max(1.0, ref.abs().max().item())
+            line += f"max-abs {e_ref:.3e} vs JAX's logits, {e_twin:.3e} vs the plain twins (bar {bar:.3e})"
+        else:
+            e_ref, e_twin = (got - ref).abs().mean().item(), (got - twin).abs().mean().item()
+            bar = 5e-2 * max(1.0, ref.abs().mean().item())
+            line += f"mean-abs {e_ref:.3e} vs JAX's fp32 logits, {e_twin:.3e} vs the plain twins (bar {bar:.3e})"
+        phase("orbax", line)
+        if launches != want(fbank=1, cam_block=3, fcm=1) or tuple(got.shape) != tuple(ref.shape) \
+                or not torch.isfinite(got).all() or not (e_ref <= bar and e_twin <= bar):
+            raise AssertionError(f"[orbax] {dtype}: launches {launches}, {e_ref} vs JAX, {e_twin} vs the twins")
+        sites[f"orbax_tsvad_{dtype}"] = launches
+        del model
+    torch.cuda.empty_cache()
+    phase("orbax", f"done in {time.perf_counter() - t_phase:.1f} s")
+    return sites
 
 
 def _free_port():
@@ -2748,15 +2831,10 @@ def main() -> int:
                 "batch_size=64", "num_steps=4", "optimizer=adam", "schedule=poly", "learning_rate=2e-4",
                 "warmup_steps=400", "bf16=true", "log_every=2", "valid_every=2", "n_layers=2",
                 "single_backend_type=mamba", "multi_backend_type=mamba"]
-        cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "train", "--family", "tsvad",
-               "--train-dir", f"{tr['data_dir']},{tr2['data_dir']}", "--valid-dir", va["data_dir"], "--exp-dir", exp,
-               "--emb-store", f"{tr['emb_store']},{tr2['emb_store']},{va['emb_store']}",
-               "--noise-dir", os.path.dirname(noise_wav)]
-        cmd += [a for kv in sets for a in ("--set", kv)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"CLI train failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
+        cli("train", "--family", "tsvad", "--train-dir", f"{tr['data_dir']},{tr2['data_dir']}", "--valid-dir",
+            va["data_dir"], "--exp-dir", exp, "--emb-store", f"{tr['emb_store']},{tr2['emb_store']},{va['emb_store']}",
+            "--noise-dir", os.path.dirname(noise_wav), *[a for kv in sets for a in ("--set", kv)])
         with open(os.path.join(exp, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
         trains = [r for r in recs if r["kind"] == "train"]
@@ -2769,19 +2847,15 @@ def main() -> int:
         if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in recs) or not ckpts:
             raise AssertionError(f"CLI train did not log, validate and checkpoint as asked: {recs}, {ckpts}")
         out = os.path.join(tmp, "hyp")
-        cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "infer", "--family", "tsvad",
-               "--data-dir", va["data_dir"], "--emb-store", va["emb_store"], "--exp-dir", exp,
-               "--out", out, "--threshold-sweep", "--ref", va["rttm"]]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"CLI infer --exp-dir failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
-        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", res.stdout)
+        stdout = cli("infer", "--family", "tsvad", "--data-dir", va["data_dir"], "--emb-store", va["emb_store"],
+                     "--exp-dir", exp, "--out", out, "--threshold-sweep", "--ref", va["rttm"])
+        best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", stdout)
         n_rttm = sum(fn.startswith("hyp_") for fn in os.listdir(tmp))
         phase("cli", f"infer --exp-dir: {n_rttm} RTTMs, best threshold {best.group(1) if best else None} "
               f"DER {best.group(2) if best else None}% (4 steps of training), {time.perf_counter() - t0:.1f} s")
         if not best or n_rttm != 18:
-            raise AssertionError(f"CLI infer --exp-dir wrote {n_rttm} RTTMs:\n{res.stdout}")
+            raise AssertionError(f"CLI infer --exp-dir wrote {n_rttm} RTTMs:\n{stdout}")
 
     # ---- the EEND training and inference entry points: cli train (a few
     # steps, validation, checkpoints) → infer --exp-dir --threshold-sweep → score
@@ -2793,13 +2867,9 @@ def main() -> int:
         for fam in ("eend", "eend_eda"):
             exp = os.path.join(tmp, "exp_" + fam)
             sets = ["batch_size=32", "bf16=true", "warmup_steps=800", "num_steps=4", "log_every=2", "valid_every=2"]
-            cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "train", "--family", fam,
-                   "--train-dir", tr["data_dir"], "--valid-dir", va["data_dir"], "--exp-dir", exp]
-            cmd += [a for kv in sets for a in ("--set", kv)]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-            if res.returncode != 0:
-                raise RuntimeError(f"CLI train --family {fam} failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
+            cli("train", "--family", fam, "--train-dir", tr["data_dir"], "--valid-dir", va["data_dir"], "--exp-dir",
+                exp, *[a for kv in sets for a in ("--set", kv)])
             with open(os.path.join(exp, "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
             trains = [r for r in recs if r["kind"] == "train"]
@@ -2811,24 +2881,19 @@ def main() -> int:
             if len(trains) != 2 or len(valids) != 2 or not all(math.isfinite(r["loss"]) for r in recs) or not ckpts:
                 raise AssertionError(f"CLI train --family {fam} did not log, validate and checkpoint as asked: {recs}")
             out = os.path.join(tmp, "hyp_" + fam)
-            cmd = [sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "infer", "--data-dir", va["data_dir"],
-                   "--exp-dir", exp, "--out", out, "--threshold-sweep", "--ref", va["rttm"]]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-            if res.returncode != 0:
-                raise RuntimeError(f"CLI infer --exp-dir ({fam}) failed ({res.returncode}):\n{res.stdout}\n{res.stderr[-6000:]}")
-            best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", res.stdout)
+            stdout = cli("infer", "--data-dir", va["data_dir"], "--exp-dir", exp, "--out", out, "--threshold-sweep",
+                         "--ref", va["rttm"])
+            best = re.search(r"best threshold ([0-9.]+) \(DER ([0-9.]+)%\)", stdout)
             n_rttm = sum(fn.startswith(f"hyp_{fam}_") for fn in os.listdir(tmp))
             phase("cli", f"infer --exp-dir ({fam}): {n_rttm} RTTMs, best threshold {best.group(1) if best else None} "
                   f"DER {best.group(2) if best else None}% (4 steps of training), {time.perf_counter() - t0:.1f} s")
             if not best or n_rttm != 18:
-                raise AssertionError(f"CLI infer --exp-dir ({fam}) wrote {n_rttm} RTTMs:\n{res.stdout}")
-            res = subprocess.run([sys.executable, "-m", "speaker_diarization_tpu_torch.cli", "score", "--ref", va["rttm"],
-                                  "--sys", f"{out}_{float(best.group(1)):.2f}"], cwd=REPO, capture_output=True,
-                                 text=True, timeout=300)
-            line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
-            if res.returncode != 0 or not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
-                raise RuntimeError(f"CLI score ({fam}) failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+                raise AssertionError(f"CLI infer --exp-dir ({fam}) wrote {n_rttm} RTTMs:\n{stdout}")
+            stdout = cli("score", "--ref", va["rttm"], "--sys", f"{out}_{float(best.group(1)):.2f}")
+            line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+            if not re.fullmatch(r"[0-9.]+/[0-9.]+/[0-9.]+/[0-9.]+", line):
+                raise RuntimeError(f"CLI score ({fam}) printed no DER line:\n{stdout}")
             phase("cli", f"score ({fam}): DER/MS/FA/SC {line}")
 
     # ---- the hermetic TS-VAD recipe on the port (recipes/hermetic_tsvad_full_stack.sh,
@@ -2839,11 +2904,12 @@ def main() -> int:
     parallel_sites = parallel_phase(dev, smi, reset_counts, want)
     dicow_phase(dev, smi)
     dicow_hermetic_phase(dev, smi)
+    orbax_sites = orbax_phase(dev, smi, plain_forward, want, reset_counts)
 
     # where each kernel launched, per path driven above (counts of one forward
     # or step; of a whole run for the CLI verbs of recipe_chain)
     sites = {"tsvad": launches, "tsvad_mamba": mlaunches, "tsvad_mamba_train_step": tlaunches, **eend_launches,
-             **slice_launches, **zoo_launches, **cli_sites, **parallel_sites}
+             **slice_launches, **zoo_launches, **cli_sites, **parallel_sites, **orbax_sites}
     kernels = []
     scan_src, scan_tpu = "speaker_diarization_tpu_torch/csrc/selective_scan.cu", "speaker_diarization_tpu/kernels/selective_scan_pallas.py"
     for key, src, replaces, path_launches in (

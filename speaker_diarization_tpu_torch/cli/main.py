@@ -101,9 +101,15 @@ weights as one flax-layout npz (flax_params.npz) beside the TSVADConfig
 they fit (tsvad_config.json); `infer --exp-dir`
 rebuilds the model from that config (its family unless --family is given,
 then --set) and restores the best checkpoint by validation loss, else the
-latest. `--params` takes the JAX TSVADModel variables as one flax-layout
-.npz (utils/convert.py); reading the JAX trainer's Orbax directories waits
-for ROADMAP item 1, [6].
+latest. An --exp-dir of the JAX package's `train` (its Orbax `step_*/`
+directories, read by utils/orbax.py without orbax or tensorstore) is read
+by `infer`, `export-vad`, `export-enhancer` and `export-encoder` as the JAX
+CLI reads it: the config from --family and --set (JAX writes no
+train_config.json), `params` and `mutable['batch_stats']` through the
+family's converter (utils/convert.py). `--params` takes the JAX TSVADModel
+variables as one flax-layout .npz (utils/convert.py). A reference
+wespeaker CAM++ `.pt` for --encoder-ckpt is read by
+utils/torch_convert.load_campplus_checkpoint.
 """
 
 from __future__ import annotations
@@ -127,9 +133,16 @@ TSVAD_FAMILIES = ("tsvad", "tsvad_streaming", "tsvad3", "sond", "ots_vad")  # wi
 
 _PARAMS_HELP = (
     "flax-layout TSVADModel variables as one .npz ('params/...' and 'batch_stats/...' keys, "
-    "utils/convert.save_flax_npz). Orbax checkpoint directories of the JAX trainer are not "
-    "read yet (ROADMAP item 1, [6])."
+    "utils/convert.save_flax_npz); a JAX trainer's Orbax run is read with --exp-dir."
 )
+# each family's flax → state-dict converter (utils/convert.py), for the JAX trainer's Orbax steps
+FROM_FLAX = {"tsvad": "tsvad_from_flax", "tsvad_streaming": "streaming_tsvad_from_flax", "tsvad3": "tsvad3_from_flax",
+             "sond": "sond_from_flax", "ots_vad": "ots_vad_from_flax", "ssnd": "ssnd_from_flax",
+             "eend": "eend_from_flax", "eend_eda": "eda_from_flax", "eend_vc": "eend_vc_from_flax",
+             "eend_m2f": "m2f_from_flax", "fs_eend": "fs_eend_from_flax", "spk": "spk_from_flax",
+             "vad": "vad_from_flax", "enhance": "enhancer_from_flax"}
+# the speaker tables whose rows give all_n_speakers when the config leaves it 0
+SPEAKER_TABLE = {"ssnd": "E_all", "eend_vc": "spk_table.weight"}
 
 
 @dataclasses.dataclass
@@ -355,18 +368,16 @@ def _load_config(path, overrides=()):
 def _load_encoder(model, path: str, attr: str = "speech_encoder") -> None:
     """Put a pretrained speech encoder into `model.<attr>` (TS-VAD3 has a
     `speaker_encoder` too): the `export-encoder` npz (of the module's
-    encoder type), or a wespeaker-named CAM++ torch state dict. The tensors
+    encoder type), or a wespeaker CAM++ `.pt` (utils/torch_convert). The tensors
     the module lacks (an embedding head TS-VAD does not use) are left out."""
-    import torch
-
     from ..utils.convert import encoder_from_flax, load_encoder_npz
+    from ..utils.torch_convert import load_campplus_checkpoint
 
     if path.endswith(".npz"):
         meta, v = load_encoder_npz(path)
         sd = encoder_from_flax(meta.get("encoder", "campplus"), v["params"], v["batch_stats"])
     else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        sd = sd.get("state_dict", sd.get("model", sd))
+        sd = load_campplus_checkpoint(path)
     enc = getattr(model, attr)
     want = enc.state_dict()
     missing = sorted(set(want) - set(sd))
@@ -715,6 +726,9 @@ def cmd_train(args) -> int:
         with open(os.path.join(args.exp_dir, TRAIN_CONFIG), "w") as f:
             json.dump(dataclasses.asdict(cfg), f, indent=1)
     if args.resume and mgr.latest_step() is not None:
+        if mgr.is_orbax(mgr.latest_step()):
+            raise SystemExit(f"{args.exp_dir}: step {mgr.latest_step()} is the JAX trainer's Orbax checkpoint, "
+                             "which the port reads for infer and export but does not resume")
         trainer.load_state_dict(mgr.restore())
         logging.info("resumed from step %d", trainer.step)
     logging.info("training %s on %s (%s): %d train items, %d valid", cfg.family, dev, model.dtype, *sizes)
@@ -744,9 +758,33 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _orbax_state_dict(mgr, step: int, family: str, avg_last: int = 0) -> dict:
+    """A JAX Orbax step → the family's state dict: its `params` (with
+    `avg_last` > 1 the mean of the last K steps', float64 sums to float32)
+    and `mutable['batch_stats']` (not averaged) through the family's
+    converter, as the JAX CLI restores them. The JAX CLI keeps the whole
+    flax variables ({'params': ...}) as the TrainState's `params` where it
+    inits without statistics (the EEND families, the VAD, the enhancer)."""
+    from ..train.checkpoints import average_orbax_params
+    from ..utils import convert
+
+    state = mgr.restore(step, select=("params", "mutable"))
+    params = state["params"]
+    if avg_last and avg_last > 1:
+        steps = mgr.all_steps()[-avg_last:]
+        if not all(mgr.is_orbax(s) for s in steps):
+            raise SystemExit(f"{mgr.directory}: --avg-last {avg_last} mixes Orbax and .pt checkpoints {steps}")
+        params = average_orbax_params(mgr, steps)
+        logging.info("averaged %d checkpoints: %s", len(steps), steps)
+    stats = (state.get("mutable") or {}).get("batch_stats", {})
+    variables = params if set(params) == {"params"} else {"params": params, "batch_stats": stats}
+    return getattr(convert, FROM_FLAX[family])(variables)
+
+
 def _model_from_exp_dir(args, dev):
-    """(model, config) from a `train` run: its config, --family and --set,
-    and the chosen checkpoint's weights (optionally the mean of the last K)."""
+    """(model, config) from a `train` run of either package: its config
+    (train_config.json, for a JAX run the defaults), --family and --set, and
+    the chosen checkpoint's weights (optionally the mean of the last K)."""
     from ..train.checkpoints import CheckpointManager, average_checkpoints
     from ..utils.config import load_json
 
@@ -759,13 +797,14 @@ def _model_from_exp_dir(args, dev):
     step = args.step or mgr.best_step() or mgr.latest_step()
     if step is None:
         raise SystemExit(f"no checkpoints in {args.exp_dir}")
-    sd = mgr.restore(step)["model"]
-    if cfg.family == "ssnd" and cfg.all_n_speakers == 0:  # the trained inventory is E_all's rows
-        cfg = dataclasses.replace(cfg, all_n_speakers=int(sd["E_all"].shape[0]))
+    jax_run = mgr.is_orbax(step)
+    sd = _orbax_state_dict(mgr, step, cfg.family, args.avg_last) if jax_run else mgr.restore(step)["model"]
+    if cfg.family in SPEAKER_TABLE and cfg.all_n_speakers == 0:  # the trained inventory is the table's rows
+        cfg = dataclasses.replace(cfg, all_n_speakers=int(sd[SPEAKER_TABLE[cfg.family]].shape[0]))
     model = build_model(cfg, dev, bf16=args.bf16)
     model.load_state_dict(sd)
     logging.info("restored step %s", step)
-    if args.avg_last and args.avg_last > 1:
+    if args.avg_last and args.avg_last > 1 and not jax_run:
         steps = mgr.all_steps()[-args.avg_last :]
         names = [n for n, _ in model.named_parameters()]
         model.load_state_dict(average_checkpoints(mgr, steps, names), strict=False)
@@ -1017,9 +1056,10 @@ def cmd_config_dump(args) -> int:
 
 
 def cmd_export_encoder(args) -> int:
-    """A spk `train` run's checkpoint → the encoder npz `extract-embeddings`
-    and `train --family tsvad --encoder-ckpt` read (JAX save_encoder format).
-    The config is the run's train_config.json, then --config, then --set."""
+    """A spk `train` run's checkpoint (either package's) → the encoder npz
+    `extract-embeddings` and `train --family tsvad --encoder-ckpt` read (JAX
+    save_encoder format). The config is the run's train_config.json, then
+    --config, then --set."""
     import torch
 
     from ..models.spk_embed import build_encoder, save_encoder
@@ -1034,7 +1074,7 @@ def cmd_export_encoder(args) -> int:
     step = args.step or mgr.latest_step()
     if step is None:
         raise SystemExit(f"no checkpoints in {args.exp_dir}")
-    sd = mgr.restore(step)["model"]
+    sd = _orbax_state_dict(mgr, step, "spk") if mgr.is_orbax(step) else mgr.restore(step)["model"]
     pre = "speech_encoder."
     enc = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
     scfg = spk_config(cfg, 1)
@@ -1060,21 +1100,21 @@ def cmd_prepare_targets(args) -> int:
 def _embedding_encoder(path, device):
     """(a speaker encoder with its embedding head in eval mode on `device`,
     fbank bins): an export-encoder npz (CAM++, ECAPA or ResNet34), a
-    wespeaker-named CAM++ torch state dict, or, with no path, CAM++ with
+    wespeaker CAM++ `.pt` (utils/torch_convert), or, with no path, CAM++ with
     seeded random weights (with a warning, as the JAX CLI does)."""
     import torch
 
     from ..models.campplus import CAMPPlus
     from ..models.layers import init_weights_
     from ..models.spk_embed import load_encoder
+    from ..utils.torch_convert import load_campplus_checkpoint
 
     if path and path.endswith(".npz"):
         camp, scfg = load_encoder(path, device)
         return camp, scfg.feat_dim
     camp = CAMPPlus()
     if path:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        sd = sd.get("state_dict", sd.get("model", sd))
+        sd = load_campplus_checkpoint(path)
         missing = sorted(set(camp.state_dict()) - set(sd))
         if missing:
             raise SystemExit(f"{path} lacks {len(missing)} CAM++ tensors, e.g. {missing[:3]}")
@@ -1126,7 +1166,8 @@ def cmd_extract_embeddings(args) -> int:
 
 def _restore_run(args, family: str):
     """(model on the CPU with a `train --family <family>` run's weights, step):
-    the run's train_config.json, the --step checkpoint, else the latest."""
+    the run's train_config.json (none in a JAX run: the defaults), the
+    --step checkpoint, else the latest, of either package."""
     import torch
 
     from ..train.checkpoints import CheckpointManager
@@ -1141,7 +1182,7 @@ def _restore_run(args, family: str):
     if step is None:
         raise SystemExit(f"no checkpoints in {args.exp_dir}")
     model = build_model(cfg, torch.device("cpu"))
-    model.load_state_dict(mgr.restore(step)["model"])
+    model.load_state_dict(_orbax_state_dict(mgr, step, family) if mgr.is_orbax(step) else mgr.restore(step)["model"])
     return model, step
 
 

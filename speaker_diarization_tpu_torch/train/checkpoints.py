@@ -5,19 +5,27 @@ checkpoints (`step_<10 digits>.pt`, holding the Trainer's state: model,
 optimizer, averaged weights, counters, dropout generator), `max_to_keep` of
 the newest plus the `best_k` best by the validation metric (kept in
 metrics.json), `latest_step`/`best_step`, and uniform averaging of the
-parameters of several checkpoints. The JAX trainer's Orbax directories are
-not read: that needs orbax, which the port does not import.
+parameters of several checkpoints.
+
+The JAX trainer's Orbax directories (`step_<10 digits>/`, written by
+`ocp.StandardCheckpointer`) in the same directory are listed and restored
+too, through utils/orbax.py (no orbax or tensorstore): `restore` gives the
+saved TrainState tree of such a step, and `average_orbax_params` the mean of
+their `params` trees. They share metrics.json and `best_step`, and are
+read-only: `save` and the pruning touch only the `.pt` files.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import is_main_process
+from ..utils import orbax
 
 
 class CheckpointManager:
@@ -50,12 +58,23 @@ class CheckpointManager:
         self._prune()
         return path
 
-    def restore(self, step: Optional[int] = None, map_location="cpu") -> dict:
-        """The saved Trainer state of `step` (default: the latest)."""
+    def _orbax_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:010d}")
+
+    def is_orbax(self, step: int) -> bool:
+        """Whether `step` is a JAX Orbax directory (and no `.pt` of the port)."""
+        return not os.path.exists(self._path(step)) and orbax.is_orbax_step(self._orbax_path(step))
+
+    def restore(self, step: Optional[int] = None, map_location="cpu", select: Optional[Sequence[str]] = None):
+        """The saved Trainer state of `step` (default: the latest); for a JAX
+        Orbax step, its TrainState tree as numpy (only the top-level keys in
+        `select`, e.g. ('params', 'mutable'), if given)."""
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        if self.is_orbax(step):
+            return orbax.restore(self._orbax_path(step), select)
         return torch.load(self._path(step), map_location=map_location, weights_only=False)
 
     def latest_step(self) -> Optional[int]:
@@ -63,7 +82,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def all_steps(self) -> List[int]:
-        return sorted(int(n[5:-3]) for n in os.listdir(self.directory) if n.startswith("step_") and n.endswith(".pt"))
+        steps = set()
+        for n in os.listdir(self.directory):
+            if n.startswith("step_") and n.endswith(".pt") and n[5:-3].isdigit():
+                steps.add(int(n[5:-3]))
+            elif len(n) == 15 and n.startswith("step_") and n[5:].isdigit() and orbax.is_orbax_step(
+                    os.path.join(self.directory, n)):
+                steps.add(int(n[5:]))
+        return sorted(steps)
 
     def best_step(self) -> Optional[int]:
         if not self._metrics:
@@ -76,7 +102,7 @@ class CheckpointManager:
         if self._metrics:
             order = sorted(self._metrics.items(), key=lambda kv: kv[1], reverse=self.metric_mode == "max")
             protected = {int(s) for s, _ in order[: self.best_k]}
-        removable = [s for s in self.all_steps() if s not in protected]
+        removable = [s for s in self.all_steps() if s not in protected and not self.is_orbax(s)]
         for s in removable[: max(0, len(removable) - self.max_to_keep)]:
             os.remove(self._path(s))
             self._metrics.pop(str(s), None)
@@ -92,3 +118,21 @@ def average_checkpoints(manager: CheckpointManager, steps: List[int], param_name
         for k in param_names:
             acc[k] = acc.get(k, 0) + model[k].double()
     return {k: (v / len(steps)).float() for k, v in acc.items()}
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def average_orbax_params(manager: CheckpointManager, steps: List[int]) -> dict:
+    """Uniform average of the `params` trees of the JAX Orbax checkpoints
+    `steps` (float64 sums, float32 result), as the JAX package's
+    average_checkpoints; statistics are not averaged."""
+    acc = None
+    for s in steps:
+        p = manager.restore(s, select=("params",))["params"]
+        acc = _tree_map(lambda x: np.asarray(x, np.float64), p) if acc is None else _tree_map(
+            lambda a, x: a + np.asarray(x, np.float64), acc, p)
+    return _tree_map(lambda a: (a / float(len(steps))).astype(np.float32), acc)

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no JAX package, no scikit-learn, umap,
-hdbscan or msgpack (the GPU hosts have none), no silent CPU fallback and no
-gloo on a GPU. Every module of the port is imported, and the TS-VAD
-speech-encoder zoo, the flax msgpack decoder, DiCoW and the Whisper decoder,
-and ring attention on a one-rank gloo group run, with those packages
-blocked."""
+hdbscan or msgpack, no orbax, tensorstore, zarr or zstandard (the GPU hosts
+have none), no silent CPU fallback and no gloo on a GPU. Every module of
+the port is imported, and the TS-VAD speech-encoder zoo, the flax msgpack
+decoder, the Orbax reader and the reference-checkpoint loaders, DiCoW and
+the Whisper decoder, and ring attention on a one-rank gloo group run, with
+those packages blocked."""
 
 import ast
 import os
@@ -23,7 +24,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "speaker_diarization_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "speaker_diarization_tpu", "sklearn", "umap", "hdbscan",
-             "msgpack"}
+             "msgpack", "zstandard", "tensorstore", "zarr"}
 TINY = dict(
     encoder_block_layers=(1, 1), transformer_embed_dim=32, transformer_ffn_embed_dim=64,
     num_attention_head=2, speaker_embed_dim=16, num_transformer_layer=1,
@@ -63,7 +64,7 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_every_module_imports_and_runs_with_jax_blocked():
     code = f"""
-import sys
+import os, sys
 for name in {sorted(FORBIDDEN)!r}:
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, numpy as np, torch
@@ -91,6 +92,13 @@ for enc, kw in zoo:
     assert out.shape == (2, 25, 4) and torch.isfinite(out).all(), (enc, out.shape)
 from speaker_diarization_tpu_torch.utils.msgpack import from_bytes
 assert from_bytes(b"\\x81\\xa1a\\x01") == {{"a": 1}}
+from speaker_diarization_tpu_torch.utils import orbax, torch_convert
+from speaker_diarization_tpu_torch.models.campplus import CAMPPlus
+fixture = os.path.join({REPO!r}, "tests", "fixtures", "torch_orbax_tsvad", "step_0000000001")
+state = orbax.restore(fixture, select=("step", "params", "mutable"))
+assert int(state["step"]) == 1 and "opt_state" not in state and state["params"]["fc"]["kernel"].shape == (384, 4)
+camp = CAMPPlus(block_layers=(1, 1, 1))
+assert torch_convert.campplus_from_torch(camp.state_dict()).keys() >= {{"head.conv1.weight", "xvector.tdnn.linear.weight"}}
 from speaker_diarization_tpu_torch.models.eda import EendEdaModel
 e = EendEdaModel(d_model=16, n_layers=1, n_heads=2, d_ff=32, max_attractors=3, device="cpu", seed=1)
 with torch.no_grad():
