@@ -1,0 +1,7 @@
+"""Percent of the profiled infer stretch with nothing running on the device."""
+
+from benchmark.metrics import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, "infer")
