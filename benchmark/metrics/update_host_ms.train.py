@@ -1,0 +1,7 @@
+"""Host ms of a train step's `trainer.update` span, median over the profiled steps."""
+
+from benchmark.program_trace import span_ms
+
+
+def read(ctx):
+    return span_ms("trainer.step", "trainer.update", "host_ms")

@@ -43,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import features as F
+from ..utils import profiling
 from ..utils.device import resolve_device, resolve_dtype
 from .campplus import CAMPPlus
 from .conformer import ConformerEncoder
@@ -389,30 +390,34 @@ class TSVADModel(nn.Module):
         target_embs: (B, max_num_speaker, speaker_embed_dim); silence/absent
         speakers use zero vectors (dataset contract, ts_vad_dataset.py:508).
         In train mode `generator` (on the model's device) draws the dropout
-        masks.
+        masks. Traced as `tsvad.forward`, with `tsvad.encode` (the speech
+        encoder and `speech_down`) and `tsvad.backends` (the rest).
         """
-        c = self.cfg
-        if n_label_frames is None:
-            if audio_or_fbank.dim() == 2:
-                n100 = 1 + (audio_or_fbank.shape[-1] - int(0.025 * c.sample_rate)) // int(0.01 * c.sample_rate)
-            else:
-                n100 = audio_or_fbank.shape[1]
-            n50 = -(-n100 // 2)
-            n_label_frames = -(-n50 // 2)
-        mix = self.encode_speech(audio_or_fbank, n_label_frames, freeze_encoder)
-        B, T, D = mix.shape
-        S = c.max_num_speaker
+        with profiling.span("tsvad.forward"):
+            c = self.cfg
+            if n_label_frames is None:
+                if audio_or_fbank.dim() == 2:
+                    n100 = 1 + (audio_or_fbank.shape[-1] - int(0.025 * c.sample_rate)) // int(0.01 * c.sample_rate)
+                else:
+                    n100 = audio_or_fbank.shape[1]
+                n50 = -(-n100 // 2)
+                n_label_frames = -(-n50 // 2)
+            with profiling.span("tsvad.encode"):
+                mix = self.encode_speech(audio_or_fbank, n_label_frames, freeze_encoder)
+            with profiling.span("tsvad.backends"):
+                B, T, D = mix.shape
+                S = c.max_num_speaker
 
-        ts = dropout(target_embs.to(self.dtype), c.dropout, self.training, generator)  # rs_dropout
-        ts = ts[:, :, None, :].expand(B, S, T, D)
-        mixs = mix[:, None, :, :].expand(B, S, T, D)
-        cat = torch.cat([ts, mixs], dim=-1)  # (B, S, T, 2D)
-        if self.proj_layer is not None:
-            cat = self.proj_layer(cat)
-        F_dim = cat.shape[-1]
-        # fold speakers into batch for the shared single backend
-        cat = self.single_backend(cat.reshape(B * S, T, F_dim), generator)  # (B·S, T, F)
-        cat = cat.reshape(B, S, T, F_dim).transpose(1, 2).reshape(B, T, S * F_dim)
-        cat = self.backend_down(cat)  # (B, T, F)
-        out = self.multi_backend(cat, generator)
-        return self.fc(out).float()  # (B, T, S)
+                ts = dropout(target_embs.to(self.dtype), c.dropout, self.training, generator)  # rs_dropout
+                ts = ts[:, :, None, :].expand(B, S, T, D)
+                mixs = mix[:, None, :, :].expand(B, S, T, D)
+                cat = torch.cat([ts, mixs], dim=-1)  # (B, S, T, 2D)
+                if self.proj_layer is not None:
+                    cat = self.proj_layer(cat)
+                F_dim = cat.shape[-1]
+                # fold speakers into batch for the shared single backend
+                cat = self.single_backend(cat.reshape(B * S, T, F_dim), generator)  # (B·S, T, F)
+                cat = cat.reshape(B, S, T, F_dim).transpose(1, 2).reshape(B, T, S * F_dim)
+                cat = self.backend_down(cat)  # (B, T, F)
+                out = self.multi_backend(cat, generator)
+                return self.fc(out).float()  # (B, T, S)

@@ -1,18 +1,28 @@
 """The training loop: epochs, periodic validation, checkpoints, logs.
 
-Counterpart of speaker_diarization_tpu/train/loop.py, with the same log
-fields and `metrics.jsonl` records:
+Counterpart of speaker_diarization_tpu/train/loop.py. The log line and the
+`metrics.jsonl` train records carry:
 
 - `steps_per_s`: train steps per wall second over the log interval;
-- `device_step_ms`: one step timed with the device drained before and after
-  (the first step of each interval), i.e. the device time of a step plus
-  its launch overhead;
-- `device_util`: device_step_ms × steps / wall time of the interval, capped
-  at 1; 1 − util is the time the input pipeline stalls the device.
+- `device_step_ms`: one step timed on the host clock with the device
+  drained before and after (the first step of each interval, the probe
+  step), i.e. the device time of a step plus its launch overhead;
+- from the probe step, which runs under the tracer (`utils/profiling`):
+  `syncs`, the blocking host-device synchronisations the step made (None
+  off CUDA); `forward_host_ms`, `backward_host_ms` and `update_host_ms`,
+  the host time of the step's three phases (`Trainer.train_step`); and
+  `update_device_ms`, the update's length on the device clock (None off
+  CUDA).
+
+The JAX package logs `device_util` (device_step_ms × steps / wall time)
+where the port logs the probe step's phases: when the host paces the step,
+the synced probe lasts as long as any other step and the ratio reads about
+1 on a device that idles, so the port dropped it.
 
 Losses stay on the device between log boundaries, so steps are not
 serialised by host reads. `profile_dir` records a torch.profiler trace of
-steps [profile_start, profile_start + profile_steps) as a Chrome trace.
+steps [profile_start, profile_start + profile_steps) as a Chrome trace
+(`profiling.trace`), which holds the tracer's spans as user annotations.
 
 In a process group every rank runs the loop on the same batches (the
 Trainer keeps its rows of each), and rank 0 alone writes `metrics.jsonl`,
@@ -23,7 +33,6 @@ from __future__ import annotations
 
 import json
 import logging
-import os
 import queue
 import threading
 import time
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import is_main_process
+from ..utils import profiling
 from .checkpoints import CheckpointManager
 from .trainer import Trainer
 
@@ -84,6 +94,20 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def _probe_fields(spans: list) -> dict:
+    """The log fields of one traced train step from the tracer's spans."""
+    by_name = {s["name"]: s for s in spans}
+
+    def ms(name, clock):
+        v = by_name.get(name, {}).get(clock)
+        return None if v is None else round(v, 2)
+
+    counted = "syncs" in by_name.get("trainer.step", {}).get("counts", {})
+    return dict(syncs=sum(s["counts"].get("syncs", 0) for s in spans) if counted else None,
+                forward_host_ms=ms("trainer.forward", "host_ms"), backward_host_ms=ms("trainer.backward", "host_ms"),
+                update_host_ms=ms("trainer.update", "host_ms"), update_device_ms=ms("trainer.update", "device_ms"))
+
+
 def run_training(
     trainer: Trainer,
     make_train_iter: Callable[[int], Iterator[dict]],
@@ -111,41 +135,37 @@ def run_training(
         profile_dir = None
     epoch, t0, window = 0, time.time(), []
     best_vloss, bad_validations, stop = float("inf"), 0, False
-    probe_next, device_probe_ms = True, None
+    probe_next, device_probe_ms, probe = True, None, {}
     prof = None
     try:
         while trainer.step < num_steps and not stop:
             start_step = trainer.step
             for batch in prefetch_iterator(make_train_iter(epoch)):
                 if profile_dir is not None and trainer.step == profile_start:
-                    from torch.profiler import ProfilerActivity, profile
-
-                    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-                    prof = profile(activities=acts)
+                    prof = profiling.trace(profile_dir)
                     prof.__enter__()
                 batch = _to_device(batch, dev)
                 if probe_next:
                     _sync(dev)
+                    profiling.reset()
                     tp = time.perf_counter()
-                    aux = trainer.train_step(batch)
+                    with profiling.tracing():
+                        aux = trainer.train_step(batch)
                     _sync(dev)
                     device_probe_ms = (time.perf_counter() - tp) * 1e3
+                    probe = _probe_fields(profiling.snapshot()["spans"])
                     probe_next = False
                 else:
                     aux = trainer.train_step(batch)
                 step = trainer.step
                 if prof is not None and step == profile_start + profile_steps:
-                    _sync(dev)
                     prof.__exit__(None, None, None)
-                    os.makedirs(profile_dir, exist_ok=True)
-                    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
                     log.info("profiler trace for steps [%d, %d) → %s", profile_start, step, profile_dir)
                     prof, profile_dir = None, None
                 window.append(aux["loss"])
                 if step % log_every == 0:
                     losses = [float(x) for x in window]  # drains the device queue
                     dt = time.time() - t0
-                    dev_s = (device_probe_ms or 0.0) * 1e-3 * len(losses)
                     msg = {
                         "step": step,
                         "epoch": epoch,
@@ -154,7 +174,7 @@ def run_training(
                         "grad_norm": round(float(aux["grad_norm"]), 4),
                         "steps_per_s": round(len(losses) / max(dt, 1e-9), 3),
                         "device_step_ms": round(device_probe_ms or 0.0, 2),
-                        "device_util": round(min(1.0, dev_s / max(dt, 1e-9)), 3),
+                        **probe,
                     }
                     for k, v in aux.items():
                         if k not in ("loss", "lr", "grad_norm"):

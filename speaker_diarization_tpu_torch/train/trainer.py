@@ -52,6 +52,7 @@ import torch
 
 from ..parallel.collectives import data_parallel
 from ..parallel.mesh import Mesh, shard_batch
+from ..utils import profiling
 from .schedules import noam_schedule, polynomial_decay_schedule
 
 
@@ -203,42 +204,48 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Forward, backward and (every grad_accum_steps-th call) one update.
         Returns aux tensors (loss, grad_norm, lr, task metrics); no host sync.
-        On a mesh `batch` is the global batch."""
-        self.model.train()
-        for p in self.params:
-            p.grad = None
-        if self.mesh is not None:
-            batch = shard_batch(batch, self.mesh)
-        with data_parallel(self.data):
-            loss, aux = self.loss_fn(self.model, batch, self.generator, True)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        if self.data is not None:
-            grads = self.data.mean_flat(grads)
-        aux = self._reduce_aux(loss, aux)
-        aux["grad_norm"] = self._norm(grads)
-        aux["lr"] = torch.tensor(self.schedule(self.step))
-        k = self.cfg.grad_accum_steps
-        if k > 1:
-            if self.acc_grads is None:
-                self.acc_grads = [torch.zeros_like(g) for g in grads]
-            for acc, g in zip(self.acc_grads, grads):
-                acc.add_((g - acc) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step == k:
-                self._apply(self.acc_grads)
-                self.acc_grads, self.mini_step = None, 0
-        else:
-            self._apply(grads)
-        for p in self.params:
-            p.grad = None
-        if self.avg_params is not None:
-            d = self.cfg.model_avg_decay
-            with torch.no_grad():
-                for n, p in self.named:
-                    self.avg_params[n].mul_(d).add_(p.detach(), alpha=1.0 - d)
-        self.step += 1
-        return aux
+        On a mesh `batch` is the global batch. Traced as `trainer.step`, with
+        the phases `trainer.forward` (the loss), `trainer.backward` (the
+        gradients, reduced on a mesh) and `trainer.update` (norm, clip, the
+        optimizer step, the Polyak average)."""
+        with profiling.span("trainer.step"):
+            self.model.train()
+            for p in self.params:
+                p.grad = None
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.mesh)
+            with profiling.span("trainer.forward"), data_parallel(self.data):
+                loss, aux = self.loss_fn(self.model, batch, self.generator, True)
+            with profiling.span("trainer.backward"):
+                grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+                if self.data is not None:
+                    grads = self.data.mean_flat(grads)
+            with profiling.span("trainer.update"):
+                aux = self._reduce_aux(loss, aux)
+                aux["grad_norm"] = self._norm(grads)
+                aux["lr"] = torch.tensor(self.schedule(self.step))
+                k = self.cfg.grad_accum_steps
+                if k > 1:
+                    if self.acc_grads is None:
+                        self.acc_grads = [torch.zeros_like(g) for g in grads]
+                    for acc, g in zip(self.acc_grads, grads):
+                        acc.add_((g - acc) / (self.mini_step + 1))
+                    self.mini_step += 1
+                    if self.mini_step == k:
+                        self._apply(self.acc_grads)
+                        self.acc_grads, self.mini_step = None, 0
+                else:
+                    self._apply(grads)
+                for p in self.params:
+                    p.grad = None
+                if self.avg_params is not None:
+                    d = self.cfg.model_avg_decay
+                    with torch.no_grad():
+                        for n, p in self.named:
+                            self.avg_params[n].mul_(d).add_(p.detach(), alpha=1.0 - d)
+            self.step += 1
+            return aux
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

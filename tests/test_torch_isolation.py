@@ -151,7 +151,7 @@ import socket
 import torch.distributed as dist
 from speaker_diarization_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from speaker_diarization_tpu_torch.parallel.ring_attention import ring_self_attention
-from speaker_diarization_tpu_torch.utils.profiling import StepTimer
+from speaker_diarization_tpu_torch.utils import profiling
 with socket.socket() as sk:
     sk.bind(("127.0.0.1", 0))
     port = sk.getsockname()[1]
@@ -159,7 +159,9 @@ init_distributed("cpu", init_method=f"tcp://127.0.0.1:{{port}}")
 q = torch.randn(1, 8, 2, 4)
 assert ring_self_attention(q, q, q, make_mesh()).shape == q.shape
 dist.destroy_process_group()
-StepTimer().start()
+with profiling.tracing(), profiling.span("x"):
+    profiling.count("n")
+assert profiling.snapshot()["spans"][0]["counts"] == {{"n": 1}}
 assert not any(k.split(".")[0] in {sorted(FORBIDDEN)!r} and sys.modules[k] is not None for k in sys.modules)
 print("ok")
 """
